@@ -1,0 +1,55 @@
+"""Carry the reference's parameters and scene into the port.
+
+Both take plain numpy data (the caller converts the reference's arrays
+with `np.asarray`), so this module needs nothing of the reference.  With
+them both packages compute the same thing from the same numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from casualhdrsplat_torch.models.image_formation import SceneStatic
+
+_GAUSSIAN_KEYS = ("means", "quats", "log_scales", "opacity_logit", "sh_dc",
+                  "sh_rest", "alive")
+_CRF_KEYS = ("unit_k", "unit_c", "unit_w", "gain", "bias")
+
+
+def params_from_jax(np_params: dict, device="cuda") -> dict:
+    """The reference's parameter tree, as numpy arrays, -> the port's
+    parameter dict: gaussians.{means, quats, log_scales, opacity_logit,
+    sh_dc, sh_rest, alive}, knot_deltas, log_exposures and crf.{unit_k,
+    unit_c, unit_w, gain, bias} (an empty crf for the non-learnable
+    kinds).  Floats become float32 tensors; `alive` stays bool."""
+
+    def tensor(a, dtype=np.float32):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+    g = np_params["gaussians"]
+    gaussians = {k: tensor(g[k]) for k in _GAUSSIAN_KEYS if k != "alive"}
+    gaussians["alive"] = tensor(g["alive"], bool)
+    crf = np_params.get("crf") or {}
+    return {
+        "gaussians": gaussians,
+        "knot_deltas": tensor(np_params["knot_deltas"]),
+        "log_exposures": tensor(np_params["log_exposures"]),
+        "crf": {k: tensor(crf[k]) for k in _CRF_KEYS if k in crf},
+    }
+
+
+def scene_from_numpy(scene, device="cuda") -> SceneStatic:
+    """Any object with the reference SceneStatic's fields (base_knots,
+    knot_t0, knot_dt, timestamps, fx, fy, cx, cy as array-likes; width,
+    height as ints) -> the port's SceneStatic."""
+
+    def tensor(name):
+        return torch.as_tensor(np.array(getattr(scene, name), np.float32), device=device)
+
+    return SceneStatic(
+        **{f: tensor(f) for f in ("base_knots", "knot_t0", "knot_dt", "timestamps",
+                                  "fx", "fy", "cx", "cy")},
+        width=int(scene.width),
+        height=int(scene.height),
+    )

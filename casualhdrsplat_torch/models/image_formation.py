@@ -1,0 +1,273 @@
+"""The CasualHDRSplat unified image-formation model.  Counterpart of
+casualhdrsplat_tpu/models/image_formation.py:
+
+    T(t)   = spline(knots; t)                       continuous camera motion
+    H_k    = Rasterize(G_theta, T(t_k))             virtual sharp HDR images
+    I_k    = F_theta(H_k * dt_i)                    shared CRF -> sharp LDRs
+    B_i    = (1/n) sum_k I_k                        estimated blurred frame
+
+All n virtual views render in one rasterizer call (views stack along the
+compositor's rows).  Parameters are a dict: {"gaussians": store,
+"knot_deltas": [M,6], "log_exposures": [F], "crf": {...}}.  The rendering
+functions follow the parameters' device; serve them under
+`torch.inference_mode()` (the compositor's backward kernel is not ported
+yet).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from casualhdrsplat_torch.config import ModelConfig
+from casualhdrsplat_torch.geometry import lie, spline
+from casualhdrsplat_torch.models import crf as crf_mod
+from casualhdrsplat_torch.models import gaussians as gauss_mod
+from casualhdrsplat_torch.ops import binning
+from casualhdrsplat_torch.ops import rasterize as rast_mod
+from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
+
+Params = Dict[str, object]
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneStatic:
+    """Non-learnable scene context."""
+
+    base_knots: torch.Tensor  # [M,4,4] from SfM poses
+    knot_t0: torch.Tensor  # scalar
+    knot_dt: torch.Tensor  # scalar
+    timestamps: torch.Tensor  # [F] frame start times
+    fx: torch.Tensor
+    fy: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    width: int
+    height: int
+
+
+def build_scene(dataset, cfg: ModelConfig, device="cuda") -> SceneStatic:
+    """SceneStatic from any object with the dataset's fields (`viewmats`
+    [F,4,4] world->cam, `timestamps` [F], `fx`, `fy`, `cx`, `cy`, `width`,
+    `height`): spline knots initialized from the per-frame poses."""
+
+    def f32(v):
+        return torch.as_tensor(np.array(v, np.float32), device=device)
+
+    poses = f32(dataset.viewmats)
+    knots, t0, dt = spline.knots_for_frames(poses, pad=2)
+    if cfg.knots_per_frame > 1:
+        knots, t0, dt = spline.resample_knots(
+            knots, t0, dt, poses.shape[0], cfg.knots_per_frame, mode=cfg.spline_mode,
+        )
+    ts = f32(dataset.timestamps)
+    # knots_for_frames assumes unit frame spacing from 0; rescale the knot
+    # clock to the dataset's timestamps
+    t_start = ts[0]
+    n = ts.shape[0]
+    t_step = (ts[-1] - ts[0]) / max(n - 1, 1) if n > 1 else torch.ones_like(t_start)
+    return SceneStatic(
+        base_knots=knots,
+        knot_t0=t_start + t0 * t_step,
+        knot_dt=t_step * dt,
+        timestamps=ts,
+        fx=f32(dataset.fx), fy=f32(dataset.fy), cx=f32(dataset.cx), cy=f32(dataset.cy),
+        width=int(dataset.width), height=int(dataset.height),
+    )
+
+
+def init_params(
+    scene: SceneStatic,
+    points_xyz,
+    points_rgb,
+    cfg: ModelConfig,
+    generator: Optional[torch.Generator] = None,
+) -> Params:
+    """The full learnable parameter dict on the scene's device."""
+    dev = scene.timestamps.device
+    num_frames = scene.timestamps.shape[0]
+    num_knots = scene.base_knots.shape[0]
+    if cfg.exposure_init_frac > 0.0 and num_frames > 1:
+        # torch.median takes the lower middle element; the reference's
+        # jnp.median averages the two, which quantile(0.5) does too
+        med_dt = torch.quantile(torch.diff(scene.timestamps), 0.5)
+        log_e0 = float(torch.log(cfg.exposure_init_frac * med_dt))
+    else:
+        log_e0 = 0.0
+    return {
+        "gaussians": gauss_mod.create(
+            points_xyz, points_rgb, cfg.max_gaussians, cfg.sh_degree, device=dev
+        ),
+        "knot_deltas": torch.zeros((num_knots, 6), device=dev),
+        "log_exposures": torch.full((num_frames,), log_e0, device=dev),
+        "crf": crf_mod.create(cfg.crf, generator, device=dev),
+    }
+
+
+def effective_knots(params: Params, scene: SceneStatic) -> torch.Tensor:
+    """knot_j = exp(delta_j) @ base_j.
+
+    LEFT multiplication (camera-frame deltas) is load-bearing: base_j is
+    world-to-camera, so a right-multiplied delta would rotate the camera
+    about the world origin and entangle orientation with position."""
+    return lie.mat_mul(lie.se3_exp(params["knot_deltas"]), scene.base_knots)
+
+
+def poses_at(params: Params, scene: SceneStatic, times, cfg: ModelConfig):
+    return spline.interpolate(
+        effective_knots(params, scene), scene.knot_t0, scene.knot_dt, times,
+        mode=cfg.spline_mode,
+    )
+
+
+def exposure_of(params: Params, frame_id) -> torch.Tensor:
+    return torch.exp(params["log_exposures"][frame_id])
+
+
+def _virtual_viewmats(params, scene, frame_id, cfg: ModelConfig, n: int):
+    t_i = scene.timestamps[frame_id]
+    dt = exposure_of(params, frame_id)
+    if cfg.optimize_poses:
+        return poses_at(params, scene, spline.sample_virtual_times(t_i, dt, n), cfg)
+    # static rig: all virtual views share the frame's base pose
+    return poses_at(params, scene, t_i[None], cfg).repeat(n, 1, 1)
+
+
+def shared_binning_demand(params: Params, scene: SceneStatic, frame_id, cfg: ModelConfig):
+    """Binning pressure of one frame, in intersection rows: (shared_demand,
+    max_per_view_demand, stream_budget).  shared_demand bins exactly the
+    footprint _rasterize_packed_shared bins."""
+    r = cfg.rasterize
+    t_i = scene.timestamps[frame_id]
+    dt = exposure_of(params, frame_id)
+    viewmats = poses_at(
+        params, scene, spline.sample_virtual_times(t_i, dt, cfg.num_virtual_views), cfg
+    )
+    act = gauss_mod.activate(params["gaussians"])
+    projs = cull_invisible(
+        project_gaussians(
+            act.means3d, act.quats, act.scales, viewmats, scene.fx, scene.fy,
+            scene.cx, scene.cy, scene.width, scene.height,
+            near_plane=r.near_plane, antialias=r.antialias,
+        ),
+        act.opacities,
+    )
+    validf = projs.valid.to(torch.float32)
+    denom = torch.clamp(validf.sum(0), min=1.0)
+    ref_m2d = (projs.means2d * validf[..., None]).sum(0) / denom[:, None]
+    cheb = torch.abs(projs.means2d - ref_m2d[None]).amax(-1)
+    r_shared = torch.where(projs.valid, cheb + projs.radii, 0.0).amax(0)
+    args = (scene.width, scene.height, r.tile_h, r.tile_w, r.max_tiles_per_gaussian)
+    shared = binning.tile_demand(ref_m2d, r_shared, projs.valid.any(0), *args)
+    per_view = torch.stack([
+        binning.tile_demand(projs.means2d[k], projs.radii[k], projs.valid[k], *args)
+        for k in range(viewmats.shape[0])
+    ])
+    n = act.means3d.shape[0]
+    budget = min(n * r.max_tiles_per_gaussian, r.stream_factor * n)
+    return shared, per_view.max(), torch.tensor(budget, dtype=torch.int32,
+                                                device=shared.device)
+
+
+class FrameRender(NamedTuple):
+    blurred_ldr: torch.Tensor  # [H,W,3] B_i
+    sharp_ldr: torch.Tensor  # [n,H,W,3] I_k virtual sharp LDR images
+    sharp_hdr: torch.Tensor  # [n,H,W,3] H_k virtual sharp HDR images
+    alphas: torch.Tensor  # [n,H,W]
+    aux: rast_mod.RasterizeAux
+
+
+def _background(cfg: ModelConfig, like: torch.Tensor):
+    return torch.ones(3, device=like.device) if cfg.white_background else None
+
+
+def render_frame(
+    params: Params,
+    scene: SceneStatic,
+    frame_id,
+    cfg: ModelConfig,
+    num_virtual: Optional[int] = None,
+    sh_degree: Optional[int] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
+) -> FrameRender:
+    """The estimated blurred auto-exposed frame B_i plus all intermediate
+    virtual images."""
+    n = num_virtual or cfg.num_virtual_views
+    deg = cfg.sh_degree if sh_degree is None else sh_degree
+    dt = exposure_of(params, frame_id)
+    viewmats = _virtual_viewmats(params, scene, frame_id, cfg, n)  # [n,4,4]
+
+    act = gauss_mod.activate(params["gaussians"])
+    camtoworlds = lie.se3_inverse(viewmats)
+    if cfg.sh_shared_view:
+        # one SH eval at the window's middle view, shared by every view
+        mid = gauss_mod.colors_for_view(act, camtoworlds[n // 2], deg)
+        colors = mid.expand((n,) + mid.shape)
+    else:
+        colors = gauss_mod.colors_for_view(act, camtoworlds, deg)  # [n,N,3]
+
+    hdr, alphas, aux = rast_mod.rasterize(
+        act.means3d, act.quats, act.scales, act.opacities, colors, viewmats,
+        scene.fx, scene.fy, scene.cx, scene.cy, scene.width, scene.height,
+        cfg.rasterize, background=_background(cfg, dt), means2d_offset=means2d_offset,
+    )
+    ldr = crf_mod.apply(params["crf"], hdr * dt, cfg.crf)  # [n,H,W,3]
+    return FrameRender(blurred_ldr=ldr.mean(0), sharp_ldr=ldr, sharp_hdr=hdr,
+                       alphas=alphas, aux=aux)
+
+
+def render_pose(
+    params: Params,
+    scene: SceneStatic,
+    viewmat: torch.Tensor,
+    cfg: ModelConfig,
+    exposure: Optional[torch.Tensor] = None,
+    hdr_output: bool = False,
+    depth_output: bool = False,
+    sh_degree: Optional[int] = None,
+):
+    """Eval-time rendering from an arbitrary pose: novel-view LDR (CRF at
+    `exposure`), novel-view HDR (`hdr_output`, CRF skipped) or the
+    alpha-normalized expected depth (`depth_output`).  Returns (image,
+    alpha, aux)."""
+    deg = cfg.sh_degree if sh_degree is None else sh_degree
+    act = gauss_mod.activate(params["gaussians"])
+    if depth_output:
+        # alpha-composited camera-space z as the "radiance"
+        z = (act.means3d * viewmat[2, :3]).sum(-1) + viewmat[2, 3]
+        colors = torch.clamp(z, min=0.0)[:, None].repeat(1, 3)
+    else:
+        colors = gauss_mod.colors_for_view(act, lie.se3_inverse(viewmat), deg)
+    hdr, alphas, aux = rast_mod.rasterize(
+        act.means3d, act.quats, act.scales, act.opacities, colors[None],
+        viewmat[None], scene.fx, scene.fy, scene.cx, scene.cy,
+        scene.width, scene.height, cfg.rasterize,
+        background=None if depth_output else _background(cfg, viewmat),
+    )
+    if depth_output:
+        return hdr[0, :, :, 0] / torch.clamp(alphas[0], min=1e-6), alphas[0], aux
+    if hdr_output:
+        return hdr[0], alphas[0], aux
+    dt = exposure if exposure is not None else 1.0
+    return crf_mod.apply(params["crf"], hdr[0] * dt, cfg.crf), alphas[0], aux
+
+
+def render_deblurred(
+    params: Params,
+    scene: SceneStatic,
+    frame_id,
+    cfg: ModelConfig,
+    hdr_output=False,
+    sh_degree: Optional[int] = None,
+    exposure: Optional[torch.Tensor] = None,
+):
+    """Deblur a training frame: one sharp render at the mid-exposure pose,
+    tone-mapped once.  `exposure` overrides the frame's learned exposure."""
+    dt = exposure_of(params, frame_id) if exposure is None else exposure
+    t_mid = scene.timestamps[frame_id] + 0.5 * dt
+    viewmat = poses_at(params, scene, t_mid.reshape(1), cfg)[0]
+    return render_pose(params, scene, viewmat, cfg, exposure=dt,
+                       hdr_output=hdr_output, sh_degree=sh_degree)
