@@ -1,6 +1,7 @@
-"""Carry the reference's parameters and scene into the port.
+"""Carry the reference's parameters, optimizer state and scene into the
+port.
 
-Both take plain numpy data (the caller converts the reference's arrays
+All take plain numpy data (the caller converts the reference's arrays
 with `np.asarray`), so this module needs nothing of the reference.  With
 them both packages compute the same thing from the same numbers.
 """
@@ -53,3 +54,31 @@ def scene_from_numpy(scene, device="cuda") -> SceneStatic:
         width=int(scene.width),
         height=int(scene.height),
     )
+
+
+def opt_state_from_jax(np_groups: dict, params: dict) -> dict:
+    """The reference's optimizer state -> the port's (train/optim.py).
+
+    `np_groups` maps every optimizer group label ("means", "quats",
+    "scales", "opacities", "sh_dc", "sh_rest", "pose", "exposure", "crf")
+    to its Adam state {"count": int, "mu": tree, "nu": tree}, each tree
+    holding numpy arrays at that group's leaves of the parameter tree (and
+    nothing elsewhere): optax keeps one such state per group.  `params` is
+    the port's parameter dict: it gives the structure and the device.  The
+    groups step together, so their counts must agree.
+    """
+    from casualhdrsplat_torch.train import optim
+
+    counts = {int(g["count"]) for g in np_groups.values()}
+    if len(counts) != 1:
+        raise ValueError(f"optimizer groups disagree on the update count: {sorted(counts)}")
+    state = optim.Optimizer({}).init(params)
+    state["count"] = counts.pop()
+    for path, label, leaf in optim.labelled_leaves(params):
+        if label == "frozen":
+            continue
+        for moment in ("mu", "nu"):
+            value = np.array(optim.tree_get(np_groups[label][moment], path), np.float32)
+            optim.tree_get(state[moment], path).copy_(
+                torch.as_tensor(value, device=leaf.device))
+    return state

@@ -28,8 +28,9 @@
 // at the end.
 //
 // What bounds it on an H100.  Every real intersection is evaluated at all
-// P pixels of its tile: about 26 fp32 operations and one exp per
-// (slot, pixel), against 64 bytes of stream read per slot.  That is
+// P pixels of its tile: about 16 fp32 operations and one exp per
+// (slot, pixel) for alpha and 10 more where it blends (alpha above the
+// threshold), against 64 bytes of stream read per slot.  That is
 // hundreds of operations per byte, so the card's fp32 issue rate bounds
 // it, not memory.  This first version is plain SIMT code: no tensor
 // cores, no TMA, no cross-tile load balancing (a CTA with a long segment

@@ -109,6 +109,30 @@ def response_curve(params: Params, cfg: CRFConfig, num: int = 256, device="cuda"
     return e, apply(params, e[:, None].repeat(1, 3), cfg)
 
 
+def smoothness_prior(params: Params, cfg: CRFConfig, num: int = 64) -> torch.Tensor:
+    """Second-difference penalty on the response curve."""
+    if cfg.kind != "mlp":
+        return torch.zeros(())
+    _, ldr = response_curve(params, cfg, num)
+    d2 = ldr[2:] - 2.0 * ldr[1:-1] + ldr[:-2]
+    return torch.mean(d2 * d2) * num**2
+
+
+def chroma_prior(params: Params, cfg: CRFConfig, num: int = 64) -> torch.Tensor:
+    """Penalize divergence between the per-channel response curves.
+
+    The joint model has a chromatic gauge: a CRF whose channels drift apart
+    can be compensated by oppositely tinted splat colours, leaving training
+    renders unchanged while both estimates walk away from the truth.
+    Penalizing the cross-channel variance of the sampled curve pins the
+    gauge without constraining the curve's shape."""
+    if cfg.kind != "mlp":
+        return torch.zeros(())
+    _, ldr = response_curve(params, cfg, num)  # [num, 3]
+    dev = ldr - ldr.mean(-1, keepdim=True)
+    return torch.mean(dev * dev)
+
+
 def _norm_log(e: torch.Tensor, cfg: CRFConfig) -> torch.Tensor:
     return (torch.log(e + _EPS) - cfg.log_min) / (cfg.log_max - cfg.log_min)
 

@@ -9,9 +9,10 @@ casualhdrsplat_tpu/models/image_formation.py:
 All n virtual views render in one rasterizer call (views stack along the
 compositor's rows).  Parameters are a dict: {"gaussians": store,
 "knot_deltas": [M,6], "log_exposures": [F], "crf": {...}}.  The rendering
-functions follow the parameters' device; serve them under
-`torch.inference_mode()` (the compositor's backward kernel is not ported
-yet).
+functions follow the parameters' device and are differentiable in every
+floating parameter (the compositor brings its own backward); a server
+that needs no gradient calls them under `torch.no_grad()` or
+`torch.inference_mode()`.
 """
 
 from __future__ import annotations
@@ -271,3 +272,13 @@ def render_deblurred(
     viewmat = poses_at(params, scene, t_mid.reshape(1), cfg)[0]
     return render_pose(params, scene, viewmat, cfg, exposure=dt,
                        hdr_output=hdr_output, sh_degree=sh_degree)
+
+
+def interpolated_log_exposure(params: Params, timestamps, train_indices, frame_id: int) -> float:
+    """Host-side: log-exposure estimate for a held-out frame by linear
+    interpolation (in time) of the nearest surrounding train frames'
+    learned log exposures (clamped at the ends)."""
+    ts = np.asarray(timestamps)
+    le = params["log_exposures"].detach().cpu().numpy()
+    tr = np.asarray(sorted(train_indices))
+    return float(np.interp(float(ts[frame_id]), ts[tr], le[tr]))

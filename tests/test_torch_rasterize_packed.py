@@ -132,10 +132,41 @@ def test_wrapper_on_cpu_and_unported_paths(rng):
                                                     return_work=True)
     assert out.shape == (3, 4, 16)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    assert work == 23 and float(out[2].abs().max()) == 0.0
+    assert work.slots == 23 and float(out[2].abs().max()) == 0.0
+    # every in-segment slot has alpha 0.5 at every pixel, far from the threshold
+    assert work.touched == 23 * 16 and not bool(work.tie_pixels.any())
     with pytest.raises(ValueError):
         t_packed.composite_stream(stream[:30], lo, hi, statics)
     cfg = t_config.RasterizeConfig(packed=False)
     with pytest.raises(NotImplementedError, match="B3/B4"):
         t_rast.rasterize(*[torch.zeros(2, d) for d in (3, 4, 3)], torch.ones(2),
                          torch.ones(2, 3), torch.eye(4), 1.0, 1.0, 1.0, 1.0, 4, 4, cfg)
+
+
+def test_reference_reports_touched_pairs_and_threshold_ties():
+    """`return_work` counts the (slot, pixel) pairs that blend and flags the
+    pixels where a slot's alpha sits at alpha_threshold; a slot outside
+    every segment, or in a window the early stop skipped, counts nowhere."""
+    statics = t_comp.CompositeStatics(
+        num_views=1, ntx=2, nty=1, tile_h=4, tile_w=4, chunk=8,
+        alpha_clip=0.99, alpha_threshold=1 / 255,
+    )
+    stream = torch.zeros(24, 16)
+    stream[:, 5] = 0.5
+    stream[:, 6:10] = 1.0
+    stream[3, 5] = 1 / 255  # at the threshold at every pixel of row 0
+    stream[4, 5] = 1e-4  # under it: evaluated, never blends
+    stream[13, 5] = 1 / 255  # a tie no row owns
+    lo = torch.tensor([0, 8], dtype=torch.int32)
+    hi = torch.tensor([8, 12], dtype=torch.int32)
+    _, work = t_packed.composite_stream_reference(stream, lo, hi, statics, return_work=True)
+    assert work.slots == 12
+    assert work.touched == (12 - 1) * 16
+    assert work.tie_pixels.shape == (3, 16)
+    assert bool(work.tie_pixels[0].all()) and not bool(work.tie_pixels[1:].any())
+    # 16 opaque slots end row 0's first window below eps: the second is skipped
+    stream[:, 5] = 0.99
+    hi = torch.tensor([16, 16], dtype=torch.int32)
+    lo = torch.tensor([0, 16], dtype=torch.int32)
+    _, work = t_packed.composite_stream_reference(stream, lo, hi, statics, return_work=True)
+    assert work.slots == 8 and work.touched == 8 * 16
