@@ -18,14 +18,17 @@ from dataclasses import dataclass, field
 class RasterizeConfig:
     tile_h: int = 16
     tile_w: int = 128
-    # Per-tile list capacity of the dense path (not ported yet; kept so
-    # configs round-trip).
+    # Per-tile list capacity of the dense path: a tile keeps its nearest
+    # tile_capacity entries.  Must be a multiple of chunk.
     tile_capacity: int = 1024
     # Max tiles a single Gaussian may be binned into (cap on bbox area).
     max_tiles_per_gaussian: int = 32
-    # Depth-ordered window length of the streaming compositor.
+    # Depth-ordered chunk length of both compositors (the early-stop vote
+    # falls at its multiples).
     chunk: int = 128
-    # Packed streaming compositor; the dense path (False) is not ported.
+    # True: the packed streaming compositor over one depth-sorted stream.
+    # False: the dense path, a [tiles, tile_capacity] table per view
+    # (ops/rasterize.py).
     packed: bool = True
     # Stream budget = stream_factor * N intersection slots per view; the
     # depth-sorted stream is waterfilled (far tails dropped) beyond it.
@@ -43,7 +46,10 @@ class RasterizeConfig:
     # motion-inflated radii, instead of once per virtual view.  Exact up
     # to within-tile depth-order ties between views.
     shared_binning: bool = True
-    # "auto" and "pallas" both select the packed kernel path in the port.
+    # "auto" and "pallas" (the reference's name for its kernels) both select
+    # the hand-written CUDA kernels of the path `packed` chooses; "xla"
+    # asks for the dense path through the plain PyTorch compositor, on
+    # whatever device the tensors are.
     backend: str = "auto"
     # In-kernel prefix choice of the TPU kernels; the port has one
     # compositor and ignores it (kept so configs round-trip).

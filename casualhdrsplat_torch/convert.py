@@ -56,6 +56,18 @@ def scene_from_numpy(scene, device="cuda") -> SceneStatic:
     )
 
 
+def adc_from_numpy(grad_accum, count, max_radii, device="cuda"):
+    """The reference's density-control statistics (AdcState's three fields
+    as array-likes) -> the port's AdcState."""
+    from casualhdrsplat_torch.train.densify import AdcState
+
+    return AdcState(
+        grad_accum=torch.as_tensor(np.array(grad_accum, np.float32), device=device),
+        count=torch.as_tensor(np.array(count, np.int32), device=device),
+        max_radii=torch.as_tensor(np.array(max_radii, np.float32), device=device),
+    )
+
+
 def opt_state_from_jax(np_groups: dict, params: dict) -> dict:
     """The reference's optimizer state -> the port's (train/optim.py).
 

@@ -2,14 +2,16 @@
 of casualhdrsplat_tpu/data/synthetic.py.
 
 The numpy draws come in the reference's order, so the same generator state
-yields the same cloud, shake and exposures in both packages.  Not ported
-yet: `structured_cloud` and the dense oracle renderer
-(`renderer="oracle"`), ROADMAP.md queue A; `make_casual_video` renders its
-ground truth through the port's rasterizer (`renderer="fast"`).
+yields the same cloud, shake and exposures in both packages.
+`make_casual_video` renders its ground truth through the port's rasterizer
+by default (`renderer="fast"`; the reference's default is the dense
+[N, H*W] oracle, `renderer="oracle"`, which the port has too).  Not ported
+yet: `structured_cloud`, ROADMAP.md queue A.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -129,19 +131,19 @@ def make_casual_video(
     (HDR * dt_i).  Frame times are 0..n_frames-1; exposures are a fraction
     of the inter-frame interval.
 
-    The ground truth goes through the port's rasterizer (the reference's
-    `renderer="fast"`; per-view binning unless `raster_cfg` says
-    otherwise).  The reference's default, the dense [N, H*W] oracle, and
-    its structured cloud are not ported yet.
+    `renderer="fast"` (the port's default) sends the ground truth through
+    the port's rasterizer (per-view binning unless `raster_cfg` says
+    otherwise), as at-spec fixtures need; `renderer="oracle"` (the
+    reference's default) through the dense [N, H*W] reference renderer
+    ops/oracle.py, for small fixtures.  The reference's structured cloud is
+    not ported yet.
     """
     from casualhdrsplat_torch import config as config_mod
+    from casualhdrsplat_torch.ops import oracle
     from casualhdrsplat_torch.ops import rasterize as raster_mod
 
-    if renderer != "fast":
-        raise NotImplementedError(
-            f"renderer={renderer!r}: the oracle renderer is not ported yet "
-            "(ROADMAP.md queue A, 'Dense path'); use renderer='fast'"
-        )
+    if renderer not in ("fast", "oracle"):
+        raise ValueError(f"unknown renderer {renderer!r}")
     if cloud_kind != "random":
         raise NotImplementedError(
             f"cloud_kind={cloud_kind!r}: structured_cloud is not ported yet "
@@ -187,7 +189,14 @@ def make_casual_video(
     # (H * dt) and spans the blur window on the spline.
     exposures = rng.uniform(*exposure_range, size=n_frames).astype(np.float32)
 
-    def render_views(mats):
+    def render_views_oracle(mats):
+        return torch.stack([
+            oracle.render(cloud.means3d, cloud.quats, cloud.scales, cloud.opacities,
+                          cloud.colors, dataclasses.replace(cam, viewmat=m)).image
+            for m in mats
+        ])
+
+    def render_views_fast(mats):
         imgs, _, aux = raster_mod.rasterize(
             cloud.means3d, cloud.quats, cloud.scales, cloud.opacities,
             cloud.colors, mats, cam.fx, cam.fy, cam.cx, cam.cy,
@@ -200,10 +209,12 @@ def make_casual_video(
             raise ValueError(
                 f"synthetic GT fixture overflowed the rasterizer "
                 f"stream budget ({dropped} contributions "
-                "dropped) — raise raster_cfg.stream_factor "
-                "or shrink the fixture (docs/TUNING.md)"
+                "dropped) — raise raster_cfg.stream_factor / "
+                "tile_capacity or shrink the fixture (docs/TUNING.md)"
             )
         return imgs
+
+    render_views = render_views_fast if renderer == "fast" else render_views_oracle
 
     timestamps = np.arange(n_frames, dtype=np.float32)
     images, sharp = [], []

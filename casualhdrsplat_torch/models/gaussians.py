@@ -34,12 +34,13 @@ def create(
     scale_clip=(1e-7, 1e2),
     device="cuda",
 ) -> Params:
-    """Initialize from SfM points (host-side numpy, then one copy)."""
+    """Initialize from SfM points: the k-NN scale init on `device`, the
+    rest host-side numpy, then one copy."""
     n = min(len(xyz), max_gaussians)
     k = sh_ops.num_sh_bases(sh_degree)
     xyz = np.asarray(xyz, np.float32)[:n]
     rgb = np.asarray(rgb, np.float32)[:n]
-    dist = np.clip(knn_mean_dist(xyz, 3), *scale_clip)
+    dist = np.clip(knn_mean_dist(xyz, 3, device=device).cpu().numpy(), *scale_clip)
 
     means = np.zeros((max_gaussians, 3), np.float32)
     means[:n] = xyz

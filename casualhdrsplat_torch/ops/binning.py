@@ -1,4 +1,4 @@
-"""Tile binning + depth sort, streaming half.  Counterpart of
+"""Tile binning + depth sort.  Counterpart of
 casualhdrsplat_tpu/ops/binning.py.
 
 Every shape stays static (the reference's XLA requirement, kept so the
@@ -6,12 +6,17 @@ two packages agree slot for slot): each Gaussian emits up to
 `max_tiles_per_gaussian` (tile, depth) keys, one stable sort orders them,
 and per-tile segment starts come from a search.  The integer outputs equal
 the reference's exactly; that needs stable sorts, since `jnp.argsort` and
-`lax.sort` are stable.  The dense [tiles, capacity] table of the dense
-path is not ported yet (ROADMAP.md, queue B, B3/B4).
+`lax.sort` are stable.
+
+The sorted stream feeds both rasterizers: the packed path compacts it to a
+stream budget (`waterfill_segments`, `compact_stream_ids`), the dense path
+cuts it into a [tiles, capacity] id table (`assign_tiles_arrays`) and
+gathers the payload rows into [tiles, capacity, 16] (`gather_payload`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -24,6 +29,17 @@ COL_OPA = 5
 COL_R, COL_G, COL_B, COL_ONE = 6, 7, 8, 9
 
 _I32 = torch.int32
+# Spare rows of the scatter buffer in gather_payload's backward: the
+# gradients of the pad slots (most of a table) are spread over them rather
+# than piled onto one pad row by millions of atomic adds, then dropped.
+_PAD_GRAD_ROWS = 1 << 16
+
+
+class TileLists(NamedTuple):
+    indices: torch.Tensor  # [..., num_tiles, capacity] int32 Gaussian id (N = pad)
+    counts: torch.Tensor  # [..., num_tiles] int32 (clipped at capacity)
+    num_dropped: torch.Tensor  # [] tile-capacity overflow
+    num_clipped: torch.Tensor  # [] bbox cells cut by the mtpg clamp
 
 
 def _ceil_log2(x: int) -> int:
@@ -141,6 +157,47 @@ def tile_demand(
     )
     area = torch.clamp((tx1 - tx0 + 1) * (ty1 - ty0 + 1), max=max_tiles_per_gaussian)
     return torch.where(valid, area, 0).sum()
+
+
+def assign_tiles(proj, width: int, height: int, tile_h: int, tile_w: int,
+                 capacity: int, max_tiles_per_gaussian: int) -> TileLists:
+    """Per-tile depth-ordered id lists of one view's projection."""
+    return assign_tiles_arrays(
+        proj.means2d, proj.radii, proj.depths, proj.valid,
+        width, height, tile_h, tile_w, capacity, max_tiles_per_gaussian,
+    )
+
+
+def assign_tiles_arrays(
+    means2d: torch.Tensor,
+    radii: torch.Tensor,
+    depths: torch.Tensor,
+    valid: torch.Tensor,
+    width: int,
+    height: int,
+    tile_h: int,
+    tile_w: int,
+    capacity: int,
+    max_tiles_per_gaussian: int,
+) -> TileLists:
+    """The dense [T, capacity] id table: tile t's row holds the nearest
+    `capacity` entries of its segment of the sorted stream, then the pad
+    id N.  An overfull tile drops its farthest entries, which are counted."""
+    n = means2d.shape[0]
+    s_gauss, starts, seg_len, clipped = sorted_stream(
+        means2d, radii, depths, valid, width, height, tile_h, tile_w,
+        max_tiles_per_gaussian,
+    )
+    counts = torch.clamp(seg_len, max=capacity).to(_I32)
+    num_dropped = torch.clamp(seg_len - capacity, min=0).sum()
+    # by gather from the sorted id stream, as the reference builds it
+    k = torch.arange(capacity, dtype=_I32, device=means2d.device)
+    idx = starts[:-1, None] + k[None, :]  # [T, capacity]
+    in_seg = k[None, :] < seg_len[:, None]
+    gid = s_gauss[torch.clamp(idx, max=s_gauss.shape[0] - 1).long()]
+    table = torch.where(in_seg, gid, n).to(_I32)
+    return TileLists(indices=table, counts=counts, num_dropped=num_dropped,
+                     num_clipped=clipped)
 
 
 class StreamChunks(NamedTuple):
@@ -280,3 +337,61 @@ def build_payload_rows(
     return torch.cat(
         [means2d, conics, opacity_eff[..., None], colors, one, zeros], dim=-1
     )
+
+
+class _GatherRows(torch.autograd.Function):
+    """rows[index] whose backward keeps the pad slots' gradients off the
+    one pad row (see `gather_payload`)."""
+
+    @staticmethod
+    def forward(ctx, rows, index, is_pad):
+        ctx.save_for_backward(index, is_pad)
+        ctx.num_rows = rows.shape[0]
+        return torch.index_select(rows, 0, index)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        index, is_pad = ctx.saved_tensors
+        m = ctx.num_rows
+        spare = m + torch.arange(index.shape[0], dtype=index.dtype,
+                                 device=index.device) % _PAD_GRAD_ROWS
+        buf = torch.zeros((m + _PAD_GRAD_ROWS, grad.shape[1]), dtype=grad.dtype,
+                          device=grad.device)
+        buf.index_add_(0, torch.where(is_pad, spare, index), grad)
+        return buf[:m], None, None
+
+
+def gather_payload(payload: torch.Tensor, tiles: TileLists) -> torch.Tensor:
+    """Payload rows [..., N + 1, 16] by id table [..., T, capacity] ->
+    [..., T, capacity, 16], all leading (view) dimensions in one gather.
+
+    The transpose is a scatter-add of the per-slot gradients into the
+    payload rows (float atomics on a CUDA device).  Most slots of a table
+    are pad slots; autograd's own transpose would add all of them into the
+    one pad row N.  The pad row is a constant, so here its gradient is
+    dropped instead: pad slots scatter into spare rows that are cut off.
+    """
+    n1 = payload.shape[-2]
+    lead = payload.shape[:-2]
+    table = tiles.indices
+    if table.shape[:-2] != lead:
+        raise ValueError(f"payload {tuple(payload.shape)} and id table "
+                         f"{tuple(table.shape)} differ in their leading dimensions")
+    views = math.prod(lead)
+    # row v * (N + 1) + id of the flattened payload
+    offset = (torch.arange(views, dtype=_I32, device=table.device) * n1).reshape(
+        lead + (1, 1))
+    index = (table + offset).reshape(-1)
+    is_pad = (table >= n1 - 1).reshape(-1)
+    flat = _GatherRows.apply(payload.reshape(views * n1, PAYLOAD_DIM), index, is_pad)
+    return flat.reshape(table.shape + (PAYLOAD_DIM,))
+
+
+def tile_origins(width: int, height: int, tile_h: int, tile_w: int,
+                 device="cuda") -> torch.Tensor:
+    """[num_tiles, 2] int32 (x0, y0) pixel origin of every tile, row-major."""
+    ntx, nty = tile_grid(width, height, tile_h, tile_w)
+    ty, tx = torch.meshgrid(torch.arange(nty, dtype=_I32, device=device),
+                            torch.arange(ntx, dtype=_I32, device=device), indexing="ij")
+    return torch.stack([tx.reshape(-1) * tile_w, ty.reshape(-1) * tile_h], dim=-1)

@@ -1,28 +1,52 @@
-"""The chunk math of front-to-back alpha compositing.  Counterpart of the
-shared math in casualhdrsplat_tpu/ops/composite.py.
+"""Per-tile alpha compositing: the chunk math, and the dense
+[tiles, capacity] compositor.  Counterpart of
+casualhdrsplat_tpu/ops/composite.py.
 
 Per tile, Gaussians come in depth-ordered chunks of G.  Within a chunk the
 transmittance is a prefix sum in log space, T_k = T_in * exp(cumsum_excl
 log(1 - alpha)), so a chunk is dense [G, P] elementwise work plus a
-contraction.  This is the plain math the streaming compositor's reference
-versions (ops/rasterize_packed.py, forward and backward) are built from;
-every function takes leading batch dimensions (rows), which the reference
-vmaps.
+contraction.  `_chunk_fwd` / `_chunk_bwd` are that plain math; every
+function takes leading batch dimensions (tiles), which the reference
+vmaps.  The plain versions of both compositors are built from them: the
+streaming one in ops/rasterize_packed.py, the dense one here.
+
+`composite_tiles` composites a gathered payload table [tiles, capacity,
+16] (binning.gather_payload) and is differentiable in it:
+- on CUDA tensors the forward launches csrc/rasterize_dense_fwd.cu and the
+  backward csrc/rasterize_dense_bwd.cu through ops/rasterize_dense.py (or
+  they raise);
+- on CPU tensors they run `composite_tiles_reference` and
+  `composite_tiles_backward_reference` on the kernels' schedule: only the
+  ceil(counts / G) occupied chunks of a tile, and none after the tile's
+  largest transmittance fell below `transmittance_eps`;
+- with `statics.backend == "xla"` they run the same plain versions without
+  that schedule (every chunk, no early stop) on whatever device the
+  tensors are: the reference's XLA compositor, an explicit request of the
+  config.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from casualhdrsplat_torch.ops import binning
 
+# [tiles, G, P] float32 elements the plain versions hold per intermediate:
+# tiles go in batches of this many elements (512 MiB); the backward holds
+# several times as many intermediates and takes a quarter.
+_REFERENCE_ELEMENTS = 1 << 27
+# Float32 roundings by which two evaluations of one alpha may differ (the
+# products and sums of the exponent, the exp, the opacity product).
+_TIE_ULPS = 8
+_EPS32 = 2.0 ** -23
+
 
 class CompositeStatics(NamedTuple):
-    """Static compositor settings.  The reference's `backend` and `prefix`
-    fields select between its XLA and Pallas variants; the port has one
-    compositor and drops them."""
+    """Static compositor settings.  The reference's `prefix` field selects
+    between two in-kernel prefix sums of its TPU kernels; the port's kernels
+    carry running products and drop it."""
 
     num_views: int
     ntx: int
@@ -35,12 +59,36 @@ class CompositeStatics(NamedTuple):
     # A tile's remaining windows are skipped once every pixel's
     # transmittance is below this.
     transmittance_eps: float = 1e-4
+    # Output-row stride per view for the tile origin (tile = row %
+    # tiles_per_view); 0 = ntx * nty.  A caller that composites a padded
+    # slice of the tiles passes its padded stride.
+    tiles_per_view: int = 0
+    # The reference's names, dense compositor only: "pallas" = the
+    # hand-written kernels (their plain versions on CPU tensors), "xla" =
+    # the plain version without the kernels' chunk schedule, on any device.
+    backend: str = "pallas"
+
+
+class CompositeWork(NamedTuple):
+    """What one input asked of a compositor (the plain versions with
+    `return_work`)."""
+
+    # list or stream slots in the chunks that were composited: each has its
+    # alpha evaluated at all P pixels of its tile
+    slots: int
+    # (slot, pixel) pairs of those with alpha >= alpha_threshold: only they
+    # blend, and only they carry a gradient
+    touched: int
+    # [rows, P] bool: pixels where some slot's alpha lies within float32
+    # rounding of alpha_threshold.  The function jumps there, so two correct
+    # evaluations may take different sides.
+    tie_pixels: torch.Tensor
 
 
 def tile_origin(tile_index: torch.Tensor, statics: CompositeStatics):
     """Pixel origin (ox, oy) of output row `tile_index` (views stack along
-    the rows, ntx * nty rows each)."""
-    t = tile_index % (statics.ntx * statics.nty)
+    the rows, `tiles_per_view` rows each)."""
+    t = tile_index % (statics.tiles_per_view or statics.ntx * statics.nty)
     return (t % statics.ntx) * statics.tile_w, (t // statics.ntx) * statics.tile_h
 
 
@@ -142,3 +190,232 @@ def _chunk_bwd(chunk, px, py, t_in, r_in, tot_dot, g4, alpha_clip, alpha_thresho
     t_out = t_in * torch.exp(s_incl[..., -1:, :])
     r_out = r_in + u.sum(-2, keepdim=True)
     return d_chunk, t_out, r_out
+
+
+def chunk_work(chunk, px, py, in_list, statics: CompositeStatics):
+    """Work report of one batch of chunks [s, G, 16] whose slots outside
+    `in_list` [s, G] carry zero opacity: (touched (slot, pixel) pairs,
+    [s, P] pixels at a threshold tie).  A tie is |alpha - threshold| <=
+    `_TIE_ULPS` float32 roundings of the threshold, each scaled by 1 + the
+    sum of the magnitudes of the exponent's terms (the rounding of a
+    cancelling sum grows with them)."""
+    alpha, alpha_raw, _, dx, dy, (cxx, cxy, cyy) = _alpha_terms(
+        chunk, px, py, statics.alpha_clip, statics.alpha_threshold)
+    terms = 0.5 * (cxx.abs() * dx * dx + cyy.abs() * dy * dy) + (cxy * dx * dy).abs()
+    slack = _TIE_ULPS * _EPS32 * statics.alpha_threshold * (1.0 + terms)
+    near = (alpha_raw.clamp(max=statics.alpha_clip) - statics.alpha_threshold).abs() <= slack
+    return (alpha > 0.0).sum(), (near & in_list[..., None]).any(dim=1)
+
+
+# --------------------------------------------------------------------------
+# The dense compositor: plain versions
+# --------------------------------------------------------------------------
+
+
+def _tile_batches(tt: int, statics: CompositeStatics, share: int, device):
+    rows = max(1, _REFERENCE_ELEMENTS // share
+               // (statics.chunk * statics.tile_h * statics.tile_w))
+    for start in range(0, tt, rows):
+        yield torch.arange(start, min(start + rows, tt), device=device)
+
+
+def _chunk_counts(counts, cap: int, statics: CompositeStatics, kernel_schedule: bool):
+    """Chunks of every tile's list that the schedule visits."""
+    if kernel_schedule:
+        return (counts.long() + statics.chunk - 1) // statics.chunk
+    return torch.full_like(counts, cap // statics.chunk, dtype=torch.int64)
+
+
+def _list_chunk(gathered, counts, tile, k: int, statics: CompositeStatics,
+                kernel_schedule: bool):
+    """Chunk k of the lists of `tile` [s]: ([s, G, 16], in_list [s, G]).  On
+    the kernels' schedule the slots from counts on, which the kernels do not
+    read, get zero opacity (they are pad rows by contract)."""
+    g = statics.chunk
+    chunk = gathered[tile, k * g:(k + 1) * g]  # a fresh copy
+    if not kernel_schedule:
+        return chunk, torch.ones(chunk.shape[:2], dtype=torch.bool, device=chunk.device)
+    in_list = (k * g + torch.arange(g, device=gathered.device)) < counts[tile, None]
+    chunk[..., binning.COL_OPA] = torch.where(in_list, chunk[..., binning.COL_OPA], 0.0)
+    return chunk, in_list
+
+
+def composite_tiles_reference(
+    gathered: torch.Tensor,
+    tile_indices: torch.Tensor,
+    counts: torch.Tensor,
+    statics: CompositeStatics,
+    kernel_schedule: bool = True,
+    return_work: bool = False,
+):
+    """Plain PyTorch version of `composite_tiles` on any device: [tt, 4, P].
+
+    Tiles go in batches; within a batch, chunk k of every tile that the
+    schedule still visits is composited with `_chunk_fwd`.  With
+    `kernel_schedule` that is the kernels' schedule (the ceil(counts / G)
+    occupied chunks, and none once no pixel of the tile has T >= eps):
+    the kernel's yardstick.  Without it every chunk of every list is
+    composited, as the reference's XLA compositor does.
+
+    With `return_work`, also returns a `CompositeWork`.
+    """
+    tt, cap, _ = gathered.shape
+    p = statics.tile_h * statics.tile_w
+    dev = gathered.device
+    out = torch.zeros((tt, 4, p), dtype=torch.float32, device=dev)
+    n_chunks = _chunk_counts(counts, cap, statics, kernel_schedule)
+    slots = torch.zeros((), dtype=torch.int64, device=dev)
+    touched = torch.zeros((), dtype=torch.int64, device=dev)
+    tie_pixels = torch.zeros((tt, p), dtype=torch.bool, device=dev)
+    for rows in _tile_batches(tt, statics, 1, dev):
+        ox, oy = tile_origin(tile_indices[rows], statics)
+        px, py = pixel_coords(ox, oy, statics.tile_h, statics.tile_w)
+        t = torch.ones((rows.shape[0], 1, p), dtype=torch.float32, device=dev)
+        acc = torch.zeros((rows.shape[0], 4, p), dtype=torch.float32, device=dev)
+        for k in range(int(n_chunks[rows].max()) if rows.numel() else 0):
+            live = n_chunks[rows] > k
+            if kernel_schedule:
+                live &= t.amax(dim=(1, 2)) >= statics.transmittance_eps
+            sel = live.nonzero()[:, 0]
+            if sel.numel() == 0:
+                break
+            chunk, in_list = _list_chunk(gathered, counts, rows[sel], k, statics,
+                                         kernel_schedule)
+            contrib, t_out = _chunk_fwd(chunk, px[sel], py[sel], t[sel],
+                                        statics.alpha_clip, statics.alpha_threshold)
+            acc[sel] += contrib
+            t[sel] = t_out
+            if return_work:
+                slots += in_list.sum()
+                pairs, ties = chunk_work(chunk, px[sel], py[sel], in_list, statics)
+                touched += pairs
+                tie_pixels[rows[sel]] |= ties
+        out[rows] = acc
+    if return_work:
+        return out, CompositeWork(int(slots), int(touched), tie_pixels)
+    return out
+
+
+def composite_tiles_backward_reference(
+    gathered: torch.Tensor,
+    tile_indices: torch.Tensor,
+    counts: torch.Tensor,
+    out4: torch.Tensor,  # [tt, 4, P] the forward's output
+    g4: torch.Tensor,  # [tt, 4, P] its upstream gradient
+    statics: CompositeStatics,
+    kernel_schedule: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of the dense backward on any device:
+    d_gathered [tt, capacity, 16], the gradient of every table slot.
+
+    It walks `composite_tiles_reference`'s schedule, front to back, with
+    the same vote on the recomputed T, carrying per pixel T and the scalar
+    suffix term r through `_chunk_bwd`: the hand-written formula of the
+    kernel, not autograd.  Chunks the schedule does not visit stay zero.
+    """
+    tt, cap, _ = gathered.shape
+    g = statics.chunk
+    p = statics.tile_h * statics.tile_w
+    dev = gathered.device
+    d_gathered = torch.zeros_like(gathered)
+    n_chunks = _chunk_counts(counts, cap, statics, kernel_schedule)
+    for rows in _tile_batches(tt, statics, 4, dev):
+        ox, oy = tile_origin(tile_indices[rows], statics)
+        px, py = pixel_coords(ox, oy, statics.tile_h, statics.tile_w)
+        g4_rows = g4[rows]
+        tot_dot = (out4[rows] * g4_rows).sum(1, keepdim=True)  # [b, 1, P]
+        t = torch.ones((rows.shape[0], 1, p), dtype=torch.float32, device=dev)
+        r_carry = torch.zeros_like(t)
+        for k in range(int(n_chunks[rows].max()) if rows.numel() else 0):
+            live = n_chunks[rows] > k
+            if kernel_schedule:
+                live &= t.amax(dim=(1, 2)) >= statics.transmittance_eps
+            sel = live.nonzero()[:, 0]
+            if sel.numel() == 0:
+                break
+            chunk, _ = _list_chunk(gathered, counts, rows[sel], k, statics,
+                                   kernel_schedule)
+            d_chunk, t_out, r_out = _chunk_bwd(
+                chunk, px[sel], py[sel], t[sel], r_carry[sel], tot_dot[sel],
+                g4_rows[sel], statics.alpha_clip, statics.alpha_threshold,
+            )
+            d_gathered[rows[sel], k * g:(k + 1) * g] = d_chunk
+            t[sel] = t_out
+            r_carry[sel] = r_out
+    return d_gathered
+
+
+# --------------------------------------------------------------------------
+# The differentiable entry point
+# --------------------------------------------------------------------------
+
+
+class _CompositeTiles(torch.autograd.Function):
+    """Forward kernel B3 and backward kernel B4 (their plain versions on
+    CPU tensors, or for backend "xla") as one differentiable function of
+    the gathered table."""
+
+    @staticmethod
+    def forward(ctx, gathered, tile_indices, counts, statics):
+        from casualhdrsplat_torch.ops import rasterize_dense
+
+        if statics.backend == "xla":
+            out = composite_tiles_reference(gathered, tile_indices, counts, statics,
+                                            kernel_schedule=False)
+        elif gathered.device.type == "cpu":
+            out = composite_tiles_reference(gathered, tile_indices, counts, statics)
+        else:
+            out = rasterize_dense.forward(gathered, tile_indices, counts, statics)
+        ctx.statics = statics
+        ctx.save_for_backward(gathered, tile_indices, counts, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g4):
+        from casualhdrsplat_torch.ops import rasterize_dense
+
+        gathered, tile_indices, counts, out4 = ctx.saved_tensors
+        statics = ctx.statics
+        args = (gathered, tile_indices, counts, out4, g4, statics)
+        if statics.backend == "xla":
+            d = composite_tiles_backward_reference(*args, kernel_schedule=False)
+        elif gathered.device.type == "cpu":
+            d = composite_tiles_backward_reference(*args)
+        else:
+            d = rasterize_dense.backward(*args)
+        return d, None, None, None
+
+
+def composite_tiles(
+    gathered: torch.Tensor,
+    statics: CompositeStatics,
+    tile_indices: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Composite depth-ordered per-tile Gaussian lists.
+
+    gathered: [num_tiles_total, capacity, 16] payload table
+      (binning.gather_payload, tiles row-major per view, views stacked).
+    tile_indices: [num_tiles_total] int32 global tile index of each entry
+      (origin from index % tiles_per_view in the row-major tile grid);
+      default arange.  A caller compositing a slice of the tiles passes
+      its offset indices.
+    counts: [num_tiles_total] int32 occupied slots of each list (default:
+      the capacity).  Slots from counts[i] on must be pad rows (zero
+      opacity): the kernels do not read them.
+
+    Returns [num_tiles_total, 4, tile_h * tile_w]: RGB radiance and
+    accumulated alpha per pixel.  Differentiable in `gathered` through the
+    hand-written backward.
+    """
+    from casualhdrsplat_torch.ops import rasterize_dense
+
+    tt = gathered.shape[0]
+    if tile_indices is None:
+        tile_indices = torch.arange(tt, dtype=torch.int32, device=gathered.device)
+    if counts is None:
+        counts = torch.full((tt,), gathered.shape[1], dtype=torch.int32,
+                            device=gathered.device)
+    rasterize_dense.check(gathered, tile_indices, counts, statics)
+    return _CompositeTiles.apply(gathered, tile_indices, counts, statics)

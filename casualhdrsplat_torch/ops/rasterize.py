@@ -1,19 +1,31 @@
-"""Gaussian rasterization, the packed streaming path.  Counterpart of
-casualhdrsplat_tpu/ops/rasterize.py:
+"""Gaussian rasterization.  Counterpart of
+casualhdrsplat_tpu/ops/rasterize.py.  Two paths, chosen by the config:
 
+packed (`cfg.packed`, the default):
     projection -> (tile, depth) binning -> budget waterfill -> one row
     gather into the depth-sorted payload stream -> streaming compositor
-    -> tile reassembly
+    (ops/rasterize_packed.py) -> tile reassembly
+  With `shared_binning` and more than one view, one sort at the views'
+  mean position serves every view (`_rasterize_packed_shared`); otherwise
+  every view is binned on its own (`_rasterize_packed`).
 
-All views of a frame share one compositor launch (views stack along the
-output rows).  With `shared_binning` and more than one view, one sort at
-the views' mean position serves every view (`_rasterize_packed_shared`);
-otherwise every view is binned on its own (`_rasterize_packed`).
+dense (`cfg.packed = False`):
+    projection -> per-view binning into a [tiles, capacity] id table ->
+    payload gather [tiles, capacity, 16] -> per-tile compositor
+    (ops/composite.composite_tiles) -> tile reassembly
+  Binning is always per view here; a tile keeps its nearest `tile_capacity`
+  entries and the overflow is counted in `aux.num_dropped`.
 
-The dense [tiles, capacity] path (`packed=False`, the reference's XLA and
-dense Pallas kernels B3/B4) is not ported yet and raises.  `backend`
-"auto" and "pallas" both mean the packed kernel path; the reference's
-"auto" picks the XLA dense path on a CPU, the port has no such switch.
+Either way all views of a frame share one compositor launch (views stack
+along the output rows).
+
+`cfg.backend`: "auto" and "pallas" (the reference's name for its kernels)
+both select the hand-written CUDA kernels of the chosen path, or their
+plain versions when the tensors lie on the CPU.  "xla" asks, whatever
+`packed` says, for the dense path through the plain compositor without the
+kernels' chunk schedule, on whatever device the tensors are: the
+reference's XLA compositor.  The reference's "auto" picks that one on a
+CPU; the port's never does.
 """
 
 from __future__ import annotations
@@ -24,7 +36,7 @@ import torch
 
 from casualhdrsplat_torch.config import RasterizeConfig
 from casualhdrsplat_torch.ops import binning, rasterize_packed
-from casualhdrsplat_torch.ops.composite import CompositeStatics
+from casualhdrsplat_torch.ops.composite import CompositeStatics, composite_tiles
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
 
 
@@ -32,8 +44,9 @@ class RasterizeAux(NamedTuple):
     radii: torch.Tensor  # [V, N] screen radii (0 = culled)
     depths: torch.Tensor  # [V, N]
     # dropped contributions: num_dropped by the stream budget (waterfilled
-    # far tails), num_clipped by the mtpg centre-clamp (bbox cells).  The
-    # per-view path sums over views; the shared path counts its one stream.
+    # far tails; on the dense path by the tile capacity), num_clipped by the
+    # mtpg centre-clamp (bbox cells).  The per-view paths sum over views; the
+    # shared path counts its one stream.
     num_dropped: torch.Tensor
     num_clipped: torch.Tensor
 
@@ -59,12 +72,8 @@ def rasterize(
 
     Returns (images [V,H,W,3], alphas [V,H,W], aux).
     """
-    if not cfg.packed or cfg.backend not in ("auto", "pallas"):
-        raise NotImplementedError(
-            "the dense rasterizer (packed=False / backend "
-            f"{cfg.backend!r}) is not ported yet: ROADMAP.md queue A item "
-            "'Dense path' with kernels B3/B4"
-        )
+    if cfg.backend not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown rasterizer backend {cfg.backend!r}")
     if viewmats.dim() == 2:
         viewmats = viewmats[None]
     projs = project_gaussians(
@@ -75,9 +84,54 @@ def rasterize(
         projs = projs._replace(means2d=projs.means2d + means2d_offset)
     projs = cull_invisible(projs, opacities)
     payload = binning.build_payload(projs, colors, opacities)  # [V, N+1, 16]
+    if not cfg.packed or cfg.backend == "xla":
+        return _rasterize_dense(projs, payload, width, height, cfg, background)
     if cfg.shared_binning and viewmats.shape[0] > 1:
         return _rasterize_packed_shared(projs, payload, width, height, cfg, background)
     return _rasterize_packed(projs, payload, width, height, cfg, background)
+
+
+def _statics(v: int, width: int, height: int, cfg: RasterizeConfig) -> CompositeStatics:
+    ntx, nty = binning.tile_grid(width, height, cfg.tile_h, cfg.tile_w)
+    return CompositeStatics(
+        num_views=v, ntx=ntx, nty=nty, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+        chunk=cfg.chunk, alpha_clip=cfg.alpha_clip,
+        alpha_threshold=cfg.alpha_threshold,
+        transmittance_eps=cfg.transmittance_eps,
+        backend="xla" if cfg.backend == "xla" else "pallas",
+    )
+
+
+def _rasterize_dense(projs, payload, width, height, cfg: RasterizeConfig, background):
+    """Dense path: every view gets its own [tiles, capacity] id table; the
+    tables stack along the tile axis, so one gather and one compositor
+    launch serve all views."""
+    v = projs.depths.shape[0]
+    lists = [
+        binning.assign_tiles_arrays(
+            projs.means2d[k], projs.radii[k], projs.depths[k], projs.valid[k],
+            width, height, cfg.tile_h, cfg.tile_w, cfg.tile_capacity,
+            cfg.max_tiles_per_gaussian,
+        )
+        for k in range(v)
+    ]
+    tiles = binning.TileLists(
+        indices=torch.stack([t.indices for t in lists]),  # [V, T, capacity]
+        counts=torch.stack([t.counts for t in lists]),
+        num_dropped=sum(t.num_dropped for t in lists),
+        num_clipped=sum(t.num_clipped for t in lists),
+    )
+    gathered = binning.gather_payload(payload, tiles)  # [V, T, capacity, 16]
+    statics = _statics(v, width, height, cfg)
+    tt = v * statics.ntx * statics.nty
+    out4 = composite_tiles(
+        gathered.reshape(tt, cfg.tile_capacity, binning.PAYLOAD_DIM), statics,
+        counts=tiles.counts.reshape(tt),
+    )  # [tt, 4, P]
+    images, alphas = _assemble_tiles(out4, tt, statics, height, width, background)
+    aux = RasterizeAux(radii=projs.radii, depths=projs.depths,
+                       num_dropped=tiles.num_dropped, num_clipped=tiles.num_clipped)
+    return images, alphas, aux
 
 
 def _stream_budget(n: int, cfg: RasterizeConfig) -> int:
@@ -152,26 +206,22 @@ def _composite(streams, seg_c, starts_c, width, height, cfg: RasterizeConfig,
     """Per-view streams [V, S, 16] with compacted segments [V, T] / starts
     [V, T+1] -> one compositor launch over all views' tiles."""
     v, s_budget, _ = streams.shape
-    ntx, nty = binning.tile_grid(width, height, cfg.tile_h, cfg.tile_w)
     # row k * T + t owns [k * S + starts_c[k, t], + seg_c[k, t])
     view_off = (torch.arange(v, device=streams.device) * s_budget)[:, None]
     row_lo = (starts_c[:, :-1] + view_off).to(torch.int32).reshape(-1)
     row_hi = row_lo + seg_c.reshape(-1)
-    statics = CompositeStatics(
-        num_views=v, ntx=ntx, nty=nty, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-        chunk=cfg.chunk, alpha_clip=cfg.alpha_clip,
-        alpha_threshold=cfg.alpha_threshold,
-        transmittance_eps=cfg.transmittance_eps,
-    )
+    statics = _statics(v, width, height, cfg)
     out4 = rasterize_packed.composite_stream(
         streams.reshape(v * s_budget, binning.PAYLOAD_DIM), row_lo, row_hi, statics
     )
-    return _assemble_tiles(out4, v * ntx * nty, v, ntx, nty, cfg.tile_h,
-                           cfg.tile_w, height, width, background)
+    return _assemble_tiles(out4, v * statics.ntx * statics.nty, statics, height, width,
+                           background)
 
 
-def _assemble_tiles(out4, num_rows, v, ntx, nty, th, tw, height, width, background):
+def _assemble_tiles(out4, num_rows, statics: CompositeStatics, height, width, background):
     """[rows, 4, P] tile composites -> ([V,H,W,3] images, [V,H,W] alphas)."""
+    v, ntx, nty = statics.num_views, statics.ntx, statics.nty
+    th, tw = statics.tile_h, statics.tile_w
     out4 = out4[:num_rows].reshape(v, nty, ntx, 4, th, tw)
     out4 = out4.permute(0, 3, 1, 4, 2, 5).reshape(v, 4, nty * th, ntx * tw)
     out4 = out4[:, :, :height, :width]

@@ -27,16 +27,15 @@ and pack their per-chunk words for SMEM; the port passes each row's
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
-
 import torch
 
 from casualhdrsplat_torch.ops import binning
 from casualhdrsplat_torch.ops.composite import (
     CompositeStatics,
-    _alpha_terms,
+    CompositeWork,
     _chunk_bwd,
     _chunk_fwd,
+    chunk_work,
     pixel_coords,
     tile_origin,
 )
@@ -50,10 +49,6 @@ MAX_TILE_PIXELS = 4096
 # backward holds several times as many of them.
 _REFERENCE_ROW_BATCH = 512
 _REFERENCE_BWD_ROW_BATCH = 128
-# Float32 roundings by which two evaluations of one alpha may differ (the
-# products and sums of the exponent, the exp, the opacity product).
-_TIE_ULPS = 8
-_EPS32 = 2.0 ** -23
 
 FWD_KERNEL = CudaKernel(
     "rasterize_packed_fwd.cu",
@@ -67,22 +62,6 @@ BWD_KERNEL = CudaKernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
     + [ctypes.c_void_p],
 )
-
-
-class CompositeWork(NamedTuple):
-    """What one input asked of the compositor (`composite_stream_reference`
-    with `return_work`)."""
-
-    # in-segment stream slots in the windows that were composited: each has
-    # its alpha evaluated at all P pixels of its tile
-    slots: int
-    # (slot, pixel) pairs of those with alpha >= alpha_threshold: only they
-    # blend, and only they carry a gradient
-    touched: int
-    # [R + 1, P] bool: pixels where some slot's alpha lies within float32
-    # rounding of alpha_threshold.  The function jumps there, so two correct
-    # evaluations may take different sides.
-    tie_pixels: torch.Tensor
 
 
 def row_windows(row_lo: torch.Tensor, row_hi: torch.Tensor, chunk: int):
@@ -212,9 +191,7 @@ def composite_stream_reference(
 
     With `return_work`, also returns a `CompositeWork`: the slots and
     (slot, pixel) pairs this input needed, and the pixels at a threshold
-    tie.  A tie is |alpha - threshold| <= `_TIE_ULPS` float32 roundings of
-    the threshold, each scaled by 1 + the sum of the magnitudes of the
-    exponent's terms (the rounding of a cancelling sum grows with them).
+    tie (composite.chunk_work).
     """
     g = statics.chunk
     p = statics.tile_h * statics.tile_w
@@ -253,14 +230,9 @@ def composite_stream_reference(
             t[sel] = t_out
             if return_work:
                 slots += in_seg.sum()
-                alpha, alpha_raw, _, dx, dy, (cxx, cxy, cyy) = _alpha_terms(
-                    chunk, px[sel], py[sel], statics.alpha_clip, statics.alpha_threshold)
-                touched += (alpha > 0.0).sum()
-                terms = 0.5 * (cxx.abs() * dx * dx + cyy.abs() * dy * dy) + (cxy * dx * dy).abs()
-                slack = _TIE_ULPS * _EPS32 * statics.alpha_threshold * (1.0 + terms)
-                near = (alpha_raw.clamp(max=statics.alpha_clip)
-                        - statics.alpha_threshold).abs() <= slack
-                tie_pixels[row] |= (near & in_seg[..., None]).any(dim=1)
+                pairs, ties = chunk_work(chunk, px[sel], py[sel], in_seg, statics)
+                touched += pairs
+                tie_pixels[row] |= ties
         out[rows] = acc
     if return_work:
         return out, CompositeWork(int(slots), int(touched), tie_pixels)

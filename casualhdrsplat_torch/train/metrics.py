@@ -1,7 +1,7 @@
 """Metrics logging.  Counterpart of casualhdrsplat_tpu/train/metrics.py
 (`MetricsLogger`, `Timer`): console + JSONL scalars (loss, PSNR,
 throughput in Mpix/s).  The pose-recovery metrics and the HDR/PNG writers
-are not ported yet (ROADMAP.md, queue A, "The rest of training")."""
+are not ported yet (ROADMAP.md, queue A)."""
 
 from __future__ import annotations
 

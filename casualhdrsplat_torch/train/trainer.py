@@ -8,12 +8,15 @@ hand-written backward of the compositor, per-group Adam.  The screen-space
 gradient statistics density control needs are taken from the
 `means2d_offset` gradient tap: a zeros input added to the projected means,
 so autograd surfaces d loss / d means2d without any bookkeeping in the
-rasterizer.  A step reads the device once, for its four scalars.
+rasterizer.  A step reads the device once, for its four scalars (and the
+four counts of a density-control round's report when one ran).
 
-Not ported yet (ROADMAP.md, queue A, "The rest of training"): the density
-control rounds (`run_step` raises when one comes due), checkpoints (`save`
-and `load` raise; `train` says so once and saves nothing) and LPIPS in
-`evaluate`.
+After the step, on the reference's schedule: a densify round in the
+densify window, a prune-only round outside it while the screen-size prune
+is armed, and the opacity reset (train/densify.py).
+
+Not ported yet (ROADMAP.md, queue A): checkpoints (`save` and `load`
+raise; `train` says so once and saves nothing) and LPIPS in `evaluate`.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from casualhdrsplat_torch.train import densify as densify_mod
 from casualhdrsplat_torch.train import metrics as metrics_mod
 from casualhdrsplat_torch.train import optim as optim_mod
 
-_NOT_PORTED = "not ported yet: ROADMAP.md, queue A, 'The rest of training'"
+_NOT_PORTED = "not ported yet: ROADMAP.md, queue A, 'Checkpoints'"
 
 
 class Trainer:
@@ -73,6 +76,9 @@ class Trainer:
         # the frame stack lives on the device once
         self.images = torch.as_tensor(self.dataset.images, device=self.device)
         self.step = 0
+        # the split noise of the density-control rounds (the reference seeds
+        # its jax.random key the same way; the numbers differ)
+        self._adc_generator = torch.Generator().manual_seed(cfg.seed + 1)
         # the reference's frame sequence: both trainers draw the same frames
         self._rng = np.random.default_rng(cfg.seed + 2)
         self.logger: Optional[metrics_mod.MetricsLogger] = None
@@ -272,22 +278,14 @@ class Trainer:
             self.cfg.model.sh_degree,
         )
 
-    def _raise_if_adc_round_due(self) -> None:
-        d = self.cfg.densify
-        if not d.enabled:
-            return
-        in_window = d.start_iter <= self.step <= d.stop_iter
-        armed = self._screen_prune_armed or densify_mod.screen_prune_active(self.step, d)
-        due = None
-        if self.step % d.interval == 0 and (in_window or armed):
-            due = "a densify round" if in_window else "a prune-only round"
-        elif self.step < d.stop_iter and self.step % d.opacity_reset_interval == 0:
-            due = "an opacity reset"
-        if due:
-            raise NotImplementedError(
-                f"{due} is due at step {self.step}, and density control is "
-                f"{_NOT_PORTED}; set densify.enabled = False"
-            )
+    def _densify(self, screen_prune: bool, prune_only: bool = False):
+        gauss, self.opt_state, self.adc, report = densify_mod.densify_and_prune(
+            self.params["gaussians"], self.opt_state, self.adc, self._adc_generator,
+            self.cfg.densify, self.scene_extent, self._image_diag,
+            screen_prune=screen_prune, prune_only=prune_only,
+        )
+        self.params["gaussians"] = gauss
+        return report
 
     def run_step(self) -> Dict[str, float]:
         frame = int(self._rng.choice(self.dataset.train_indices))
@@ -296,11 +294,32 @@ class Trainer:
             sigma = torch.tensor(sigma, device=self.device)
         scalars = self._train_step(frame, sigma, self.active_sh_degree())
         self.step += 1
-        self._raise_if_adc_round_due()
-        loss_v, psnr_v, dropped_v, clipped_v = scalars.tolist()  # the one host read
-        # binning-budget overflow is an approximation (waterfilled far-tail
-        # drop per tile): surfaced so a blown budget is never silent
+        d = self.cfg.densify
+        in_window = d.enabled and d.start_iter <= self.step <= d.stop_iter
+        armed = self._screen_prune_armed or densify_mod.screen_prune_active(self.step, d)
+        report = None
+        if in_window and self.step % d.interval == 0:
+            report = self._densify(armed)
+        elif d.enabled and not in_window and armed and self.step % d.interval == 0:
+            # Oversized-splat response outside the densify window: no
+            # clone/split growth after densify.stop_iter, just screen-radius
+            # pruning, whenever the screen prune is armed (by the clipped
+            # watchdog or by densify.screen_prune_from).
+            report = self._densify(True, prune_only=True)
+        # Reset only while densification is active: the lineage stops at
+        # stop_iter, else the final model could keep every opacity clamped
+        # near-transparent.
+        if d.enabled and self.step < d.stop_iter and self.step % d.opacity_reset_interval == 0:
+            self.params["gaussians"] = densify_mod.reset_opacity(self.params["gaussians"])
+        if report is not None:
+            scalars = torch.cat([scalars, torch.stack(list(report)).to(scalars.dtype)])
+        values = scalars.tolist()  # the one host read
+        loss_v, psnr_v, dropped_v, clipped_v = values[:4]
+        # binning-budget overflow is an approximation (far-tail drop per
+        # tile): surfaced so a blown budget is never silent
         out = {"loss": loss_v, "psnr": psnr_v, "dropped": dropped_v, "clipped": clipped_v}
+        if report is not None:
+            out.update(zip(("cloned", "split", "pruned", "alive"), map(int, values[4:])))
         self._watch_overflow(out)
         return out
 

@@ -70,8 +70,8 @@ def test_truncated_ground_truth_raises():
 
 def test_unported_sources_raise():
     rng = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_synth.make_casual_video(rng, renderer="oracle", device="cpu")
+    with pytest.raises(ValueError, match="unknown renderer"):
+        t_synth.make_casual_video(rng, renderer="raytrace", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_synth.make_casual_video(rng, cloud_kind="structured", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,5 +1,7 @@
 """The CUDA compositor kernels (csrc/rasterize_packed_fwd.cu and
-csrc/rasterize_packed_bwd.cu) held against their plain PyTorch versions on
+csrc/rasterize_packed_bwd.cu for the depth-sorted stream,
+csrc/rasterize_dense_fwd.cu and csrc/rasterize_dense_bwd.cu for the dense
+[tiles, capacity] table) held against their plain PyTorch versions on
 the card.  Marked `cuda`: without a card the
 fixture skips every test here (the decision is made inside the fixture,
 so every pytest-xdist worker collects the same tests).
@@ -25,6 +27,8 @@ import pytest
 import torch
 
 from casualhdrsplat_torch.ops import binning
+from casualhdrsplat_torch.ops import composite
+from casualhdrsplat_torch.ops import rasterize_dense as rd
 from casualhdrsplat_torch.ops import rasterize_packed as rp
 from casualhdrsplat_torch.ops.composite import CompositeStatics
 
@@ -210,3 +214,176 @@ def test_wrapper_runs_under_inference_mode(cuda):
         out = rp.composite_stream(stream, lo, hi, statics)
     ref = rp.composite_stream_reference(stream, lo, hi, statics)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+# -- the dense [tiles, capacity] compositor ------------------------------------
+
+
+def _table_case(seed, tile_h, tile_w, ntx, nty, views, chunk, cap, device,
+                opacity=(0.05, 0.99), tiles_per_view=0):
+    """A random gathered table: tile i holds counts[i] in 0..cap occupied
+    rows, then zero pad rows; every fifth tile is empty, every seventh full."""
+    rng = np.random.default_rng(seed)
+    tt = views * ntx * nty
+    counts = rng.integers(0, cap + 1, size=tt)
+    counts[::5] = 0
+    counts[3::7] = cap
+    table = np.zeros((tt, cap, binning.PAYLOAD_DIM), np.float32)
+    t = np.arange(tt) % (ntx * nty)
+    ox, oy = ((t % ntx) * tile_w)[:, None], ((t // ntx) * tile_h)[:, None]
+    sig = rng.uniform(0.7, 4.0, size=(tt, cap))
+    table[..., 0] = ox + rng.uniform(-4, tile_w + 4, (tt, cap))
+    table[..., 1] = oy + rng.uniform(-4, tile_h + 4, (tt, cap))
+    table[..., 2] = table[..., 4] = 1 / sig**2
+    table[..., 3] = rng.uniform(-0.2, 0.2, (tt, cap)) / sig**2
+    table[..., 5] = rng.uniform(*opacity, (tt, cap))
+    table[..., 6:9] = rng.uniform(0, 2, size=(tt, cap, 3))
+    table[..., 9] = 1.0
+    table[np.arange(cap)[None, :] >= counts[:, None]] = 0.0  # pad rows
+    statics = CompositeStatics(
+        num_views=views, ntx=ntx, nty=nty, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
+        alpha_clip=0.99, alpha_threshold=1 / 255, tiles_per_view=tiles_per_view,
+    )
+    return (torch.as_tensor(table, device=device),
+            torch.arange(tt, dtype=torch.int32, device=device),
+            torch.as_tensor(counts, dtype=torch.int32, device=device), statics)
+
+
+DENSE_CASES = [
+    (16, 16, 128, 1024),  # the dense path's shape: 256 pixels, 1 per thread
+    (16, 128, 128, 256),  # the default tile: 2048 pixels, 8 per thread
+    (8, 20, 32, 96),  # 160 pixels: a partial warp-multiple block
+]
+
+
+def _dense_bwd_inputs(case, seed):
+    out4 = rd.forward(*case)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return out4, torch.randn(out4.shape, generator=gen).to(out4.device)
+
+
+@pytest.mark.parametrize("tile_h,tile_w,chunk,cap", DENSE_CASES)
+def test_dense_kernels_match_plain_versions(cuda, tile_h, tile_w, chunk, cap):
+    case = _table_case(0, tile_h, tile_w, 3, 2, 2, chunk, cap, cuda)
+    gathered, ti, counts, statics = case
+    before = rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches
+    out = rd.forward(*case)
+    g4 = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    d = rd.backward(gathered, ti, counts, out, g4, statics)
+    torch.cuda.synchronize()
+    assert (rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    ref = composite.composite_tiles_reference(*case)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert float(out[counts == 0].abs().max()) == 0.0  # an empty list composites nothing
+    d_ref = composite.composite_tiles_backward_reference(gathered, ti, counts, out, g4, statics)
+    assert d.shape == gathered.shape and torch.isfinite(d).all()
+    _assert_grad_close(d, d_ref)
+    # pad rows, and the columns that carry no gradient, are written as zeros
+    pad = torch.arange(cap, device=cuda)[None, :] >= counts[:, None]
+    assert float(d[pad].abs().max()) == 0.0
+    assert float(d[..., 9:].abs().max()) == 0.0
+
+
+def test_dense_backward_large_tile(cuda):
+    """32x128 = 4096 pixels: the 512-thread variant of the backward, 16
+    pixels a thread in the forward."""
+    case = _table_case(2, 32, 128, 2, 1, 1, 128, 256, cuda)
+    gathered, ti, counts, statics = case
+    out4, g4 = _dense_bwd_inputs(case, 3)
+    torch.testing.assert_close(out4, composite.composite_tiles_reference(*case),
+                               atol=1e-4, rtol=1e-4)
+    d = rd.backward(gathered, ti, counts, out4, g4, statics)
+    _assert_grad_close(d, composite.composite_tiles_backward_reference(
+        gathered, ti, counts, out4, g4, statics))
+    with pytest.raises(ValueError, match="exceeds the kernel"):
+        rd.forward(gathered, ti, counts, statics._replace(tile_h=64))
+
+
+def test_dense_tile_indices_with_padded_stride(cuda):
+    """Origins come from tile_indices % tiles_per_view, not from the
+    position in the table: a shuffled slice with a padded per-view stride."""
+    gathered, ti, counts, statics = _table_case(4, 16, 16, 3, 2, 1, 32, 128, cuda)
+    stride = 8  # padded from 6
+    order = torch.tensor([4, 0, 5, 2], device=cuda)
+    ti_off = (order + 2 * stride).to(torch.int32)
+    padded = statics._replace(tiles_per_view=stride)
+    out = rd.forward(gathered[order].contiguous(), ti_off, counts[order].contiguous(), padded)
+    whole = rd.forward(gathered, ti, counts, statics)
+    assert torch.equal(out, whole[order])
+    g4 = torch.randn(whole.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    d = rd.backward(gathered[order].contiguous(), ti_off, counts[order].contiguous(), out,
+                    g4[order].contiguous(), padded)
+    assert torch.equal(d, rd.backward(gathered, ti, counts, whole, g4, statics)[order])
+
+
+def test_dense_backward_is_deterministic_and_overwrites(cuda):
+    """Plain stores in a fixed order: two launches give the same bits, and
+    every row of the gradient table is written, whatever it held."""
+    case = _table_case(6, 16, 16, 3, 2, 2, 128, 512, cuda)
+    gathered, ti, counts, statics = case
+    out4, g4 = _dense_bwd_inputs(case, 7)
+    a = rd.backward(gathered, ti, counts, out4, g4, statics)
+    junk = torch.full_like(gathered, float("nan"))  # recycled by the allocator
+    del junk
+    b = rd.backward(gathered, ti, counts, out4, g4, statics)
+    assert torch.equal(a, b) and torch.isfinite(b).all()
+
+
+def test_dense_early_stop_leaves_later_chunks_zero(cuda):
+    """Opaque splats that cover their whole tile saturate it within its
+    first chunks; forward and backward skip the rest of the list alike."""
+    gathered, ti, counts, statics = _table_case(8, 16, 16, 2, 2, 1, 32, 256, cuda)
+    occupied = gathered[..., 9] > 0
+    gathered[..., 5] = torch.where(occupied, 0.99, 0.0)
+    gathered[..., 2] = gathered[..., 4] = torch.where(occupied, 1e-4, 0.0)
+    gathered[..., 3] = 0.0
+    case = (gathered, ti, counts, statics)
+    out4, g4 = _dense_bwd_inputs(case, 9)
+    ref, work = composite.composite_tiles_reference(*case, return_work=True)
+    torch.testing.assert_close(out4, ref, atol=1e-4, rtol=1e-4)
+    assert work.slots < int(counts.sum())  # the stop skipped occupied chunks
+    d = rd.backward(gathered, ti, counts, out4, g4, statics)
+    d_ref = composite.composite_tiles_backward_reference(gathered, ti, counts, out4, g4,
+                                                         statics)
+    _assert_grad_close(d, d_ref)
+    untouched = (d[..., :9].abs().amax(-1) == 0) & occupied
+    assert int(untouched.sum()) > 0
+    assert torch.equal(d[..., :9].abs().amax(-1) == 0, d_ref[..., :9].abs().amax(-1) == 0)
+
+
+def test_composite_tiles_function_on_card(cuda):
+    """composite_tiles as an autograd Function on CUDA tensors: kernels B3
+    and B4, equal to the plain versions and, in the columns that carry a
+    gradient, to a central finite difference of the float32 forward kernel
+    (h = 1e-2, atol 2% of the largest gradient); backend "xla" runs the
+    plain version on the card and launches nothing."""
+    gathered, ti, counts, statics = _table_case(10, 8, 16, 2, 1, 1, 32, 32, cuda)
+    gathered.requires_grad_(True)
+    before = rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches
+    out = composite.composite_tiles(gathered, statics, counts=counts)
+    g4 = torch.randn(out.shape, generator=torch.Generator().manual_seed(11)).to(cuda)
+    (d,) = torch.autograd.grad(out, gathered, g4)
+    assert (rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    base = gathered.detach()
+    _assert_grad_close(d, composite.composite_tiles_backward_reference(
+        base, ti, counts, out.detach(), g4, statics))
+    plain = composite.composite_tiles(base, statics._replace(backend="xla"), counts=counts)
+    assert (rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out.detach(), plain, atol=1e-4, rtol=1e-4)
+    scale, h = float(d.abs().max()), 1e-2
+    for tile in range(base.shape[0]):
+        for slot in range(0, int(counts[tile]), 5):
+            for col in (0, 1, 5, 6):  # mx, my, opacity, red
+                plus, minus = base.clone(), base.clone()
+                plus[tile, slot, col] += h
+                minus[tile, slot, col] -= h
+                fd = ((rd.forward(plus, ti, counts, statics)
+                       - rd.forward(minus, ti, counts, statics)) * g4).sum() / (2 * h)
+                assert abs(float(fd) - float(d[tile, slot, col])) <= 2e-2 * scale, (
+                    tile, slot, col)
+    with torch.inference_mode():
+        again = composite.composite_tiles(base, statics, counts=counts)
+    assert torch.equal(again, out.detach())
+    with pytest.raises(ValueError, match="counts outside"):
+        rd.forward(base, ti, counts + 40, statics)

@@ -56,7 +56,8 @@ def test_synthetic_scene_sources():
 def test_knn_and_gaussian_store(rng):
     xyz = rng.uniform(-1, 1, size=(60, 3)).astype(np.float32)
     rgb = rng.uniform(size=(60, 3)).astype(np.float32)
-    np.testing.assert_allclose(t_knn.knn_mean_dist(xyz), j_knn.knn_mean_dist(xyz), rtol=1e-5)
+    np.testing.assert_allclose(t_knn.knn_mean_dist(xyz, device="cpu").numpy(),
+                               j_knn.knn_mean_dist(xyz), rtol=1e-5)
     st = t_gauss.create(xyz, rgb, 64, sh_degree=2, device="cpu")
     sj = j_gauss.create(xyz, rgb, 64, sh_degree=2)
     assert set(st) == set(sj)

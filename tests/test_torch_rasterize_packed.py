@@ -137,8 +137,8 @@ def test_wrapper_on_cpu_and_unported_paths(rng):
     assert work.touched == 23 * 16 and not bool(work.tie_pixels.any())
     with pytest.raises(ValueError):
         t_packed.composite_stream(stream[:30], lo, hi, statics)
-    cfg = t_config.RasterizeConfig(packed=False)
-    with pytest.raises(NotImplementedError, match="B3/B4"):
+    cfg = t_config.RasterizeConfig(backend="mosaic")
+    with pytest.raises(ValueError, match="unknown rasterizer backend"):
         t_rast.rasterize(*[torch.zeros(2, d) for d in (3, 4, 3)], torch.ones(2),
                          torch.ones(2, 3), torch.eye(4), 1.0, 1.0, 1.0, 1.0, 4, 4, cfg)
 

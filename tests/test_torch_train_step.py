@@ -34,6 +34,7 @@ import torch
 from casualhdrsplat_torch import config as t_config
 from casualhdrsplat_torch import convert
 from casualhdrsplat_torch.data import dataset as t_dataset
+from casualhdrsplat_torch.train import densify as t_densify
 from casualhdrsplat_torch.train import optim as t_optim
 from casualhdrsplat_torch.train.trainer import Trainer as TorchTrainer
 from casualhdrsplat_tpu import config as j_config
@@ -327,15 +328,47 @@ def test_watchdog_arms_screen_prune(tiny_dataset, capsys):
     ("an opacity reset", dict(start_iter=100, opacity_reset_interval=2)),
 ])
 def test_unported_rounds_raise(tiny_dataset, due, setup):
-    cfg = tiny_cfg()
-    cfg.densify.enabled = True
-    for k, v in setup.items():
-        setattr(cfg.densify, k, v)
-    t = TorchTrainer(cfg, tiny_dataset, device="cpu")
+    """A density-control round that comes due after step 2 runs inside
+    run_step, and leaves exactly what the same round applied by hand leaves
+    on a twin trainer whose schedule holds no round."""
+    def build(**densify_kw):
+        cfg = tiny_cfg()
+        cfg.densify.enabled = True
+        cfg.densify.grad_threshold = 1e-7  # so that Gaussians do ask for slots
+        for k, v in densify_kw.items():
+            setattr(cfg.densify, k, v)
+        return TorchTrainer(cfg, tiny_dataset, device="cpu")
+
+    t = build(**setup)
+    twin = build(start_iter=100, interval=10**6, opacity_reset_interval=10**6)
     assert t.active_sh_degree() == 0  # the SH warm-up of a density-controlled run
-    t.run_step()
-    with pytest.raises(NotImplementedError, match=f"{due}.*ROADMAP"):
-        t.run_step()
+    for trainer in (t, twin):
+        trainer.run_step()
+    assert int(t.adc.count.sum()) > 0
+    out, out_twin = t.run_step(), twin.run_step()
+    assert not set(out_twin) & {"cloned", "split", "pruned", "alive"}
+    d = t.cfg.densify
+    g = twin.params["gaussians"]
+    if due == "an opacity reset":
+        g = t_densify.reset_opacity(g)
+        assert set(out) == set(out_twin)
+        assert float(t.params["gaussians"]["opacity_logit"].max()) <= np.log(0.01 / 0.99) + 1e-6
+    else:
+        prune_only = due == "a prune-only round"
+        g, opt_state, adc, report = t_densify.densify_and_prune(
+            g, twin.opt_state, twin.adc, torch.Generator().manual_seed(t.cfg.seed + 1),
+            d, twin.scene_extent, twin._image_diag,
+            screen_prune=prune_only, prune_only=prune_only)
+        assert (out["cloned"], out["split"], out["pruned"], out["alive"]) == tuple(
+            int(x) for x in report)
+        assert out["alive"] == int(t.params["gaussians"]["alive"].sum())
+        assert (out["cloned"] + out["split"] > 0) != prune_only
+        assert int(t.adc.count.sum()) == 0  # the statistics start over
+        for a, b in zip(t_optim.labelled_leaves(t.opt_state["mu"]),
+                        t_optim.labelled_leaves(opt_state["mu"])):
+            torch.testing.assert_close(a[2], b[2], rtol=0, atol=0)
+    for k, v in t.params["gaussians"].items():
+        torch.testing.assert_close(v, g[k], rtol=0, atol=0, msg=k)
 
 
 def test_save_and_load_raise(tiny_dataset, tmp_path):
