@@ -24,52 +24,79 @@
 // and sums the two visits of a block shared by two tiles.  Here one CTA owns
 // one output row and walks its windows itself, as the forward kernel does;
 // the row owns its slots, so the CTA writes their gradients with plain
-// stores: no atomics, no zeroing pass, the same bits on every run.  Each
-// thread owns PPT pixels and keeps their T, r, out4 . g4 and the four g4
-// values in registers.  A window is staged in shared memory in pieces of
-// SUB slots.  Per slot the nine sums over the tile's pixels are reduced in
-// two levels: over a thread's pixels in registers and over the warp with
-// shuffles, then lane 0 stores the warp's nine partial sums in shared
-// memory; after the piece, the warps' partials are added in a fixed order
-// and each slot's nine values are written once.  A warp none of whose
-// pixels a slot touches (alpha = 0 at all of them) skips the shuffles: on
-// 16x128 tiles most slots touch a small part of the tile.
+// stores: no atomics on device memory, no zeroing pass, the same bits on
+// every run.  Each thread keeps T, r, out4 . g4 and the four g4 values of
+// its pixels in registers.  A window is staged in shared memory in pieces
+// of SUB slots.  The forward's design carries over:
+// - the slot box (`slot_box` in packed_tiles.cuh, the forward's own) is
+//   computed per staged slot; outside it alpha is 0, where the gradient
+//   has no term;
+// - the mapping gives each warp a compact block of the tile (strips of 8
+//   columns; on 16x128 warp w owns columns 16w .. 16w+15), groups of 32
+//   pixels (4 rows of 8 columns) per unrolled j, and two ballots list the
+//   slots a warp's block meets and the groups a slot's box meets; only
+//   those evaluate alpha;
+// - the row order is the wrapper's, longest segment first.
+// The reduction.  A warp that a listed slot touches (alpha > 0 at one of
+// its pixels) reduces its nine sums by a recursive-halving reduce-scatter
+// over the lanes (12 shuffles: 9 values split 5 + 4 at offset 16, 3 + 2 at
+// 8, 2 + 1 at 4, 1 + 1 at 2, a sum at 1); the lanes that end with a column
+// store it in the warp's partial row in shared memory and the warp sets
+// its bit in the slot's mask.  After the piece each slot's columns are the
+// partials of the warps in its mask, added in warp order, and written once.
+// A warp that does not touch the slot does nothing.  Every order is fixed,
+// so two launches give the same bits.
 //
-// What bounds it on an H100.  About 16 fp32 operations and one exp per
-// (slot, pixel) for alpha, and about 47 more and one division at the pairs
-// the slot touches, against 128 bytes per slot (the payload row read, the
-// gradient row written): the fp32 arithmetic rate bounds it, as it bounds
-// the forward.  The 45 shuffles per (slot, warp) of the reduction come on
-// top.  This first version is plain SIMT code: no tensor cores, no
-// TMA, no cross-tile load balancing.
+// What bounds it on an H100.  The function needs about 16 fp32 operations
+// and one exp for alpha and 47 more and one division for the gradient at
+// every (slot, pixel) pair the slot touches, 128 bytes per slot it visits
+// (the payload row read, the gradient row written) and 32 bytes per pixel
+// of every tile (out4 and g4 read); chip_smoke.py counts both.  The kernel
+// still evaluates alpha at the untouched pixels of the groups its boxes
+// select, and pays 12 shuffles per touching (slot, warp).  Plain SIMT code:
+// no tensor cores, no TMA.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "packed_tiles.cuh"
 
 namespace {
 
-constexpr int kPayloadDim = 16;
+using namespace packed_tiles;
+
 // gradient columns = payload columns 0..8: mx, my, cxx, cxy, cyy, opa, r, g, b
 constexpr int kGradCols = 9;
+// Column each lane ends the reduce-scatter with, by lane bits 4..1 (nibble
+// (lane >> 1) & 15); 15 = none.
+constexpr unsigned long long kLaneColumn = 0xFFF8F765FF43F210ull;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// One step of the reduce-scatter: the lane keeps `lo` (lower half of the
+// pair of lanes `off` apart) or `hi` (upper half) and adds its partner's.
+__device__ __forceinline__ float halve(float lo, float hi, bool upper, int off) {
+  const float send = upper ? lo : hi;
+  return (upper ? hi : lo) + __shfl_xor_sync(kFull, send, off);
 }
 
 template <int PPT, int THREADS, int SUB>
-__global__ void __launch_bounds__(THREADS) rasterize_packed_bwd_kernel(
+__global__ void __launch_bounds__(THREADS, 2048 / THREADS / 4)
+rasterize_packed_bwd_kernel(
     const float* __restrict__ stream, const int* __restrict__ row_lo,
-    const int* __restrict__ row_hi, const float* __restrict__ out4,
-    const float* __restrict__ g4, float* __restrict__ d_stream, int P,
-    int tile_h, int tile_w, int ntx, int tiles_per_view, int g,
-    float alpha_clip, float alpha_threshold, float eps) {
+    const int* __restrict__ row_hi, const int* __restrict__ row_order,
+    const float* __restrict__ out4, const float* __restrict__ g4,
+    float* __restrict__ d_stream, int P, int tile_h, int tile_w, int ntx,
+    int tiles_per_view, int g, int sw_log2, float alpha_clip,
+    float alpha_threshold, float eps) {
   constexpr int WARPS = THREADS / 32;
   __shared__ float4 window[SUB * (kPayloadDim / 4)];  // SUB payload rows
+  __shared__ short4 boxes[SUB];
   __shared__ float partial[WARPS][SUB][kGradCols];
+  __shared__ unsigned warps_of[SUB];  // bit w: warp w wrote partial[w][k]
+  // the pixel block of each warp's group j, and at [PPT] the warp's whole block
+  __shared__ short4 blocks[WARPS][PPT + 1];
 
-  const int row = blockIdx.x;
+  const int row = row_order[blockIdx.x];
   const int lo = row_lo[row];
   const int hi = row_hi[row];
   if (hi <= lo) return;  // the whole CTA: an empty row owns no slot
@@ -78,23 +105,25 @@ __global__ void __launch_bounds__(THREADS) rasterize_packed_bwd_kernel(
   const int oy = (tile / ntx) * tile_h;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
+  const int column = (int)((kLaneColumn >> (4 * ((lane >> 1) & 15))) & 15);
 
   const float* o_row = out4 + (size_t)row * 4 * P;
   const float* g_row = g4 + (size_t)row * 4 * P;
   float px[PPT], py[PPT], T[PPT], r[PPT], tot[PPT];
   float g0[PPT], g1[PPT], g2[PPT], g3[PPT];
   bool active[PPT];
+  int wx0 = kEmptyLo, wx1 = kEmptyHi, wy0 = kEmptyLo, wy1 = kEmptyHi;
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
-    const int p = threadIdx.x + j * blockDim.x;
-    active[j] = p < P;
-    px[j] = (float)(p % tile_w + ox) + 0.5f;
-    py[j] = (float)(p / tile_w + oy) + 0.5f;
+    int x, y;
+    active[j] = pixel_of<PPT>(warp, lane, j, sw_log2, tile_h, tile_w, &x, &y);
+    px[j] = (float)(x + ox) + 0.5f;
+    py[j] = (float)(y + oy) + 0.5f;
     T[j] = 1.0f;
     r[j] = 0.0f;
     g0[j] = g1[j] = g2[j] = g3[j] = tot[j] = 0.0f;
     if (active[j]) {
+      const int p = y * tile_w + x;
       g0[j] = g_row[0 * P + p];
       g1[j] = g_row[1 * P + p];
       g2[j] = g_row[2 * P + p];
@@ -102,7 +131,14 @@ __global__ void __launch_bounds__(THREADS) rasterize_packed_bwd_kernel(
       tot[j] = o_row[0 * P + p] * g0[j] + o_row[1 * P + p] * g1[j] +
                o_row[2 * P + p] * g2[j] + o_row[3 * P + p] * g3[j];
     }
+    const bool on = active[j];
+    const int bx0 = warp_min(on ? x : kEmptyLo), bx1 = warp_max(on ? x : kEmptyHi);
+    const int by0 = warp_min(on ? y : kEmptyLo), by1 = warp_max(on ? y : kEmptyHi);
+    if (lane == j) blocks[warp][j] = make_short4(bx0, bx1, by0, by1);
+    wx0 = min(wx0, bx0), wx1 = max(wx1, bx1), wy0 = min(wy0, by0), wy1 = max(wy1, by1);
   }
+  if (lane == 0) blocks[warp][PPT] = make_short4(wx0, wx1, wy0, wy1);
+  // (read after the first window's vote, a barrier)
 
   const int first_block = lo / g;
   const int last_block = (hi - 1) / g;
@@ -121,79 +157,89 @@ __global__ void __launch_bounds__(THREADS) rasterize_packed_bwd_kernel(
                           (size_t)s0 * (kPayloadDim / 4);
       for (int i = threadIdx.x; i < n * (kPayloadDim / 4); i += blockDim.x)
         window[i] = src[i];
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        boxes[i] = slot_box(src[4 * i], src[4 * i + 1], src[4 * i + 2], ox, oy, tile_w,
+                            tile_h, alpha_clip, alpha_threshold);
+        warps_of[i] = 0u;
+      }
       __syncthreads();
 
-      for (int k = 0; k < n; ++k) {
-        const float4 q0 = window[4 * k + 0];  // mx, my, cxx, cxy
-        const float4 q1 = window[4 * k + 1];  // cyy, opa, r, g
-        const float4 q2 = window[4 * k + 2];  // b, one, -, -
-        float a_mx = 0.0f, a_my = 0.0f, a_cxx = 0.0f, a_cxy = 0.0f, a_cyy = 0.0f;
-        float a_opa = 0.0f, a_r = 0.0f, a_g = 0.0f, a_b = 0.0f;
-        bool touched = false;
+      for (int k0 = 0; k0 < n; k0 += 32) {
+        // the slots of these 32 whose box meets the warp's block, in order
+        unsigned hits = __ballot_sync(
+            kFull, k0 + lane < n && meets(boxes[k0 + lane], blocks[warp][PPT]));
+        while (hits) {
+          const int k = k0 + __ffs(hits) - 1;
+          hits &= hits - 1;
+          const short4 box = boxes[k];
+          const unsigned groups =  // at one pixel a thread the group is the warp's block
+              PPT == 1 ? 1u : __ballot_sync(kFull, lane < PPT && meets(box, blocks[warp][lane]));
+          const float4 q0 = window[4 * k + 0];  // mx, my, cxx, cxy
+          const float4 q1 = window[4 * k + 1];  // cyy, opa, r, g
+          const float4 q2 = window[4 * k + 2];  // b, one, -, -
+          float a[kGradCols] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+          bool touched = false;
 #pragma unroll
-        for (int j = 0; j < PPT; ++j) {
-          const float dx = px[j] - q0.x;
-          const float dy = py[j] - q0.y;
-          const float power =
-              -(0.5f * (q0.z * dx * dx + q1.x * dy * dy) + q0.w * dx * dy);
-          const float ex = expf(fminf(power, 0.0f));
-          const float alpha_raw = q1.y * ex;
-          float alpha = fminf(alpha_raw, alpha_clip);
-          alpha = alpha >= alpha_threshold ? alpha : 0.0f;
-          if (alpha > 0.0f && active[j]) {
-            touched = true;
-            const float t_k = T[j];
-            const float w = alpha * t_k;
-            const float cg = q1.z * g0[j] + q1.w * g1[j] + q2.x * g2[j] + q2.y * g3[j];
-            r[j] += w * cg;  // inclusive: slot k itself before term2
-            const float one_minus = 1.0f - alpha;  // >= 1 - clip > 0
-            const float dl_da = t_k * cg - (tot[j] - r[j]) / one_minus;
-            const float g_a = alpha_raw < alpha_clip ? dl_da : 0.0f;
-            const float g_pw = g_a * alpha;
-            a_mx += g_pw * (q0.z * dx + q0.w * dy);
-            a_my += g_pw * (q1.x * dy + q0.w * dx);
-            a_cxx += g_pw * (-0.5f * dx * dx);
-            a_cxy += g_pw * (-dx * dy);
-            a_cyy += g_pw * (-0.5f * dy * dy);
-            a_opa += g_a * ex;
-            a_r += w * g0[j];
-            a_g += w * g1[j];
-            a_b += w * g2[j];
-            T[j] = t_k * one_minus;
+          for (int j = 0; j < PPT; ++j) {
+            if (!((groups >> j) & 1u)) continue;  // alpha is 0 at all 32 pixels
+            const float dx = px[j] - q0.x;
+            const float dy = py[j] - q0.y;
+            const float power =
+                -(0.5f * (q0.z * dx * dx + q1.x * dy * dy) + q0.w * dx * dy);
+            const float ex = expf(fminf(power, 0.0f));
+            const float alpha_raw = q1.y * ex;
+            float alpha = fminf(alpha_raw, alpha_clip);
+            alpha = alpha >= alpha_threshold ? alpha : 0.0f;
+            if (alpha > 0.0f && active[j]) {
+              touched = true;
+              const float t_k = T[j];
+              const float w = alpha * t_k;
+              const float cg = q1.z * g0[j] + q1.w * g1[j] + q2.x * g2[j] + q2.y * g3[j];
+              r[j] += w * cg;  // inclusive: slot k itself before term2
+              const float one_minus = 1.0f - alpha;  // >= 1 - clip > 0
+              const float dl_da = t_k * cg - (tot[j] - r[j]) / one_minus;
+              const float g_a = alpha_raw < alpha_clip ? dl_da : 0.0f;
+              const float g_pw = g_a * alpha;
+              a[0] += g_pw * (q0.z * dx + q0.w * dy);
+              a[1] += g_pw * (q1.x * dy + q0.w * dx);
+              a[2] += g_pw * (-0.5f * dx * dx);
+              a[3] += g_pw * (-dx * dy);
+              a[4] += g_pw * (-0.5f * dy * dy);
+              a[5] += g_a * ex;
+              a[6] += w * g0[j];
+              a[7] += w * g1[j];
+              a[8] += w * g2[j];
+              T[j] = t_k * one_minus;
+            }
           }
-        }
-        if (__any_sync(0xffffffffu, touched)) {
-          a_mx = warp_sum(a_mx);
-          a_my = warp_sum(a_my);
-          a_cxx = warp_sum(a_cxx);
-          a_cxy = warp_sum(a_cxy);
-          a_cyy = warp_sum(a_cyy);
-          a_opa = warp_sum(a_opa);
-          a_r = warp_sum(a_r);
-          a_g = warp_sum(a_g);
-          a_b = warp_sum(a_b);
-        }
-        if (lane == 0) {
-          float* d = partial[warp][k];
-          d[0] = a_mx;
-          d[1] = a_my;
-          d[2] = a_cxx;
-          d[3] = a_cxy;
-          d[4] = a_cyy;
-          d[5] = a_opa;
-          d[6] = a_r;
-          d[7] = a_g;
-          d[8] = a_b;
+          if (!__any_sync(kFull, touched)) continue;
+          // reduce-scatter: 9 columns over 32 lanes in 12 shuffles
+          bool up = lane & 16;
+          float h5[5], h3[3], h2[2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) h5[i] = halve(a[i], a[5 + i], up, 16);
+          h5[4] = halve(a[4], 0.0f, up, 16);
+          up = lane & 8;
+          h3[0] = halve(h5[0], h5[3], up, 8);
+          h3[1] = halve(h5[1], h5[4], up, 8);
+          h3[2] = halve(h5[2], 0.0f, up, 8);
+          up = lane & 4;
+          h2[0] = halve(h3[0], h3[2], up, 4);
+          h2[1] = halve(h3[1], 0.0f, up, 4);
+          float z = halve(h2[0], h2[1], lane & 2, 2);
+          z += __shfl_xor_sync(kFull, z, 1);
+          if (!(lane & 1) && column < kGradCols) partial[warp][k][column] = z;
+          if (lane == 0) atomicOr(&warps_of[k], 1u << warp);
         }
       }
       __syncthreads();
 
-      // the warps' partial sums, added in warp order: one store per value
+      // the touching warps' partial sums, added in warp order: one store per value
       for (int i = threadIdx.x; i < n * kGradCols; i += blockDim.x) {
         const int k = i / kGradCols;
         const int c = i - k * kGradCols;
         float sum = 0.0f;
-        for (int w = 0; w < nwarps; ++w) sum += partial[w][k][c];
+        for (unsigned m = warps_of[k]; m; m &= m - 1) sum += partial[__ffs(m) - 1][k][c];
         d_stream[(size_t)(s0 + k) * kPayloadDim + c] = sum;
       }
       __syncthreads();  // before the next piece overwrites window and partial
@@ -203,48 +249,49 @@ __global__ void __launch_bounds__(THREADS) rasterize_packed_bwd_kernel(
 
 template <int PPT, int THREADS, int SUB>
 cudaError_t launch(const float* stream, const int* row_lo, const int* row_hi,
-                   const float* out4, const float* g4, float* d_stream,
-                   int num_rows, int threads, int P, int tile_h, int tile_w,
-                   int ntx, int tiles_per_view, int g, float alpha_clip,
-                   float alpha_threshold, float eps, cudaStream_t cu_stream) {
+                   const int* row_order, const float* out4, const float* g4,
+                   float* d_stream, int num_rows, int threads, int P, int tile_h,
+                   int tile_w, int ntx, int tiles_per_view, int g, int sw_log2,
+                   float alpha_clip, float alpha_threshold, float eps,
+                   cudaStream_t cu_stream) {
   rasterize_packed_bwd_kernel<PPT, THREADS, SUB>
       <<<num_rows, threads, 0, cu_stream>>>(
-          stream, row_lo, row_hi, out4, g4, d_stream, P, tile_h, tile_w, ntx,
-          tiles_per_view, g, alpha_clip, alpha_threshold, eps);
+          stream, row_lo, row_hi, row_order, out4, g4, d_stream, P, tile_h,
+          tile_w, ntx, tiles_per_view, g, sw_log2, alpha_clip, alpha_threshold,
+          eps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Returns a cudaError_t code: 0
-// on a successful launch.  d_stream must come zeroed.  A thread holds at
-// most 8 pixels (nine floats of state each): tiles of up to 2048 pixels run
-// 256 threads, larger ones up to 4096 pixels run 512; more are refused with
-// cudaErrorInvalidValue, and the wrapper checks that first.
+// on a successful launch.  d_stream must come zeroed; row_order is a
+// permutation of the rows.  A thread holds at most 8 pixels (nine floats of
+// state each): tiles whose padded strips fit 8 warps run the 256-thread
+// variant, those that fit 16 the 512-thread one (every tile of up to 4096
+// pixels fits one); more are refused with cudaErrorInvalidValue, and the
+// wrapper checks that first.
 extern "C" int chs_rasterize_packed_bwd(
     const float* stream, const int* row_lo, const int* row_hi,
-    const float* out4, const float* g4, float* d_stream, int num_rows, int P,
-    int tile_h, int tile_w, int ntx, int tiles_per_view, int g,
-    float alpha_clip, float alpha_threshold, float eps, void* cu_stream) {
+    const int* row_order, const float* out4, const float* g4, float* d_stream,
+    int num_rows, int P, int tile_h, int tile_w, int ntx, int tiles_per_view,
+    int g, float alpha_clip, float alpha_threshold, float eps, void* cu_stream) {
   if (num_rows == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(cu_stream);
-#define CHS_LAUNCH(N, THREADS, SUB)                                           \
-  return (int)launch<N, THREADS, SUB>(                                        \
-      stream, row_lo, row_hi, out4, g4, d_stream, num_rows, threads, P,       \
-      tile_h, tile_w, ntx, tiles_per_view, g, alpha_clip, alpha_threshold,    \
-      eps, s)
-  if (P <= 2048) {
-    const int threads = P >= 256 ? 256 : ((P + 31) / 32) * 32;
-    const int ppt = (P + threads - 1) / threads;
-    if (ppt <= 1) CHS_LAUNCH(1, 256, 128);
-    if (ppt <= 2) CHS_LAUNCH(2, 256, 128);
-    if (ppt <= 4) CHS_LAUNCH(4, 256, 128);
+  int sw_log2, ppt, threads;
+#define CHS_LAUNCH(N, THREADS, SUB)                                            \
+  return (int)launch<N, THREADS, SUB>(                                         \
+      stream, row_lo, row_hi, row_order, out4, g4, d_stream, num_rows,         \
+      threads, P, tile_h, tile_w, ntx, tiles_per_view, g, sw_log2, alpha_clip, \
+      alpha_threshold, eps, s)
+  if (plan(tile_h, tile_w, 8, 8, &sw_log2, &ppt, &threads)) {
+    if (ppt == 1) CHS_LAUNCH(1, 256, 128);
+    if (ppt == 2) CHS_LAUNCH(2, 256, 128);
+    if (ppt == 4) CHS_LAUNCH(4, 256, 128);
     CHS_LAUNCH(8, 256, 128);
   }
-  if (P <= 4096) {
-    const int threads = 512;
+  if (plan(tile_h, tile_w, 16, 8, &sw_log2, &ppt, &threads) && ppt == 8)
     CHS_LAUNCH(8, 512, 64);
-  }
 #undef CHS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

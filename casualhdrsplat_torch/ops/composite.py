@@ -73,11 +73,12 @@ class CompositeWork(NamedTuple):
     """What one input asked of a compositor (the plain versions with
     `return_work`)."""
 
-    # list or stream slots in the chunks that were composited: each has its
-    # alpha evaluated at all P pixels of its tile
+    # list or stream slots in the chunks that were composited (each one's
+    # row is read once)
     slots: int
     # (slot, pixel) pairs of those with alpha >= alpha_threshold: only they
-    # blend, and only they carry a gradient
+    # blend, only they carry a gradient, and only at them does any
+    # implementation have to evaluate alpha
     touched: int
     # [rows, P] bool: pixels where some slot's alpha lies within float32
     # rounding of alpha_threshold.  The function jumps there, so two correct

@@ -2,9 +2,10 @@
 
 Each kernel source in casualhdrsplat_torch/csrc/ has a plain C entry point.
 At first use it is compiled with `nvcc` for sm_90a into a shared library
-under casualhdrsplat_torch/_build/ (named by a hash of the source and the
-flags, so an edited source rebuilds) and loaded with ctypes.  Nothing is
-built or loaded at import time.
+under casualhdrsplat_torch/_build/ (named by a hash of the source, the
+csrc/ headers it includes and the flags, so an edited source or header
+rebuilds) and loaded with ctypes.  Nothing is built or loaded at import
+time.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,6 +26,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# `#include "name"`: a header of csrc/, found beside the source by nvcc
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -33,12 +37,27 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _local_includes(src: Path) -> list[Path]:
+    """The csrc/ headers that `src` includes with quotes, and theirs."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            header = CSRC_DIR / name
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def build(source_name: str) -> Path:
     """Compile csrc/<source_name> (if not built yet) and return the path of
-    its shared library.  The compiler's log, including ptxas's register
+    its shared library, named by a hash of the source, the headers it
+    includes and the flags.  The compiler's log, including ptxas's register
     and shared-memory report, is written beside it as <library>.log."""
     src = CSRC_DIR / source_name
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in [src, *_local_includes(src)])
+                            + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib

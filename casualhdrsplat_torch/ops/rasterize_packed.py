@@ -12,7 +12,10 @@ same windows and writes the gradient of every stream slot in stream space.
 
 `composite_stream` is differentiable in the stream:
 - on CUDA tensors the forward launches csrc/rasterize_packed_fwd.cu and the
-  backward csrc/rasterize_packed_bwd.cu (or they raise);
+  backward csrc/rasterize_packed_bwd.cu (or they raise), their CTAs taking
+  the rows longest first (`row_order`, computed once in the forward and
+  kept for the backward) and evaluating each slot only in the warps and
+  pixel groups its box meets (`slot_boxes`);
 - on CPU tensors they run `composite_stream_reference` and
   `composite_stream_backward_reference`, the plain PyTorch versions: the
   same window schedule, batched over rows, with the chunk math of
@@ -53,15 +56,23 @@ _REFERENCE_BWD_ROW_BATCH = 128
 FWD_KERNEL = CudaKernel(
     "rasterize_packed_fwd.cu",
     "chs_rasterize_packed_fwd",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
     + [ctypes.c_void_p],
 )
 BWD_KERNEL = CudaKernel(
     "rasterize_packed_bwd.cu",
     "chs_rasterize_packed_bwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
     + [ctypes.c_void_p],
 )
+# The kernels' own slot box (packed_tiles.cuh) launched alone, for tests.
+BOX_KERNEL = CudaKernel(
+    "rasterize_packed_fwd.cu",
+    "chs_packed_slot_boxes",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+)
+# The box of a slot that reaches no pixel: (x0, x1, y0, y1) that no block meets.
+EMPTY_BOX = (32767, -1, 32767, -1)
 
 
 def row_windows(row_lo: torch.Tensor, row_hi: torch.Tensor, chunk: int):
@@ -71,6 +82,80 @@ def row_windows(row_lo: torch.Tensor, row_hi: torch.Tensor, chunk: int):
     first = lo // chunk
     count = torch.where(hi > lo, (hi - 1) // chunk - first + 1, 0)
     return first, count
+
+
+def row_order(row_lo: torch.Tensor, row_hi: torch.Tensor) -> torch.Tensor:
+    """int32 permutation of the rows, longest segment first (ties in row
+    order): the order in which the kernels' CTAs take their rows.  On the
+    device, without a host sync."""
+    return torch.argsort(row_hi - row_lo, descending=True, stable=True).to(torch.int32)
+
+
+def slot_boxes(payload: torch.Tensor, ox, oy, statics: CompositeStatics) -> torch.Tensor:
+    """Pixel box of each slot on its tile, as the kernels compute it
+    (`slot_box` in csrc/packed_tiles.cuh), in float64.
+
+    payload [..., 16] rows; ox, oy the origins of the tiles they are
+    composited on (broadcast against [...]).  Returns int64 [..., 4]:
+    (x0, x1, y0, y1), inclusive tile-local bounds outside which the slot's
+    alpha is below alpha_threshold, so 0.  With Q = -power = 1/2 d^T C d,
+    alpha >= threshold needs Q <= L = ln(opa / threshold): an ellipse of
+    half-widths sqrt(2 L cyy / det) and sqrt(2 L cxx / det).  Float32
+    evaluation of Q errs by a few roundings of cxx dx^2 + cyy dy^2 <=
+    2 Q / (1 - rho), rho = |cxy| / sqrt(cxx cyy); L is raised by 64 of them
+    and by the exp's and the product's, and the box padded by a pixel.
+    `EMPTY_BOX` where opa or alpha_clip is under the threshold or the box
+    misses the tile; the whole tile where the conic is not positive
+    definite (power > 0 then gives alpha = opa), too close to singular for
+    the rounding bound, or anything is not finite.  A colour that is not
+    finite gives the whole tile whatever the opacity: c * 0 is NaN, so the
+    blend changes every pixel.
+    """
+    f32 = torch.float32
+    d = payload.double()
+    mx, my = d[..., binning.COL_MX], d[..., binning.COL_MY]
+    cxx, cxy, cyy = d[..., binning.COL_CXX], d[..., binning.COL_CXY], d[..., binning.COL_CYY]
+    opa = payload[..., binning.COL_OPA]
+    thr = torch.tensor(statics.alpha_threshold, dtype=f32)
+    clip = torch.tensor(statics.alpha_clip, dtype=f32)
+    det = cxx * cyy - cxy * cxy
+    s = det / (cxx * cyy)  # 1 - rho^2
+    slack = 64.0 * 2.0**-23 / (s / (1.0 + torch.sqrt(1.0 - s)))
+    big_l = (torch.log(opa.double() / float(thr)) * (1.0 + 1e-6) + 1e-6) / (1.0 - slack)
+    ex, ey = torch.sqrt(2.0 * big_l * cyy / det), torch.sqrt(2.0 * big_l * cxx / det)
+    cx = mx - torch.as_tensor(ox, dtype=torch.float64) - 0.5
+    cy = my - torch.as_tensor(oy, dtype=torch.float64) - 0.5
+    rx = ex + 1.0 + 1e-6 * (ex + cx.abs())
+    ry = ey + 1.0 + 1e-6 * (ey + cy.abs())
+    whole = (~(thr > 0) | ~(cxx > 0) | ~(det > 0) | ~(slack <= 0.5)
+             | ~(cx.isfinite() & cy.isfinite() & rx.isfinite() & ry.isfinite()))
+    box = torch.stack([
+        torch.ceil(cx - rx).clamp(min=0), torch.floor(cx + rx).clamp(max=statics.tile_w - 1),
+        torch.ceil(cy - ry).clamp(min=0), torch.floor(cy + ry).clamp(max=statics.tile_h - 1),
+    ], dim=-1)
+    below = (opa < thr) | (clip < thr)
+    box = torch.where((below | whole)[..., None], 0.0, box).long()  # no NaN cast
+    missed = (box[..., 0] > box[..., 1]) | (box[..., 2] > box[..., 3])
+    whole_box = torch.tensor([0, statics.tile_w - 1, 0, statics.tile_h - 1])
+    empty_box = torch.tensor(EMPTY_BOX)
+    box = torch.where(whole[..., None], whole_box, torch.where(missed[..., None], empty_box, box))
+    box = torch.where(below[..., None], empty_box, box)
+    colour = payload[..., binning.COL_R:binning.COL_ONE + 1].isfinite().all(-1)
+    return torch.where(colour[..., None], box, whole_box)
+
+
+def _slot_boxes_cuda(payload, ox, oy, statics: CompositeStatics) -> torch.Tensor:
+    """The kernels' own boxes of the slots payload [n, 16] on the tiles at
+    origins ox, oy ([n] int32), launched alone: int64 [n, 4] (x0, x1, y0,
+    y1), to hold against `slot_boxes`."""
+    n = payload.shape[0]
+    out = torch.empty((n, 4), dtype=torch.int16, device=payload.device)
+    BOX_KERNEL(
+        payload.contiguous().data_ptr(), ox.contiguous().data_ptr(), oy.contiguous().data_ptr(),
+        out.data_ptr(), n, statics.tile_h, statics.tile_w, statics.alpha_clip,
+        statics.alpha_threshold, torch.cuda.current_stream(payload.device).cuda_stream,
+    )
+    return out.long()
 
 
 def _check(stream_payload, row_lo, row_hi, statics: CompositeStatics):
@@ -99,7 +184,8 @@ def _kernel_args(statics: CompositeStatics, device):
     )
 
 
-def _forward_cuda(stream_payload, row_lo, row_hi, statics: CompositeStatics):
+def _forward_cuda(stream_payload, row_lo, row_hi, order, statics: CompositeStatics):
+    """Launch kernel B1; its CTAs take the rows in `order` (`row_order`)."""
     p = statics.tile_h * statics.tile_w
     if p > MAX_TILE_PIXELS:
         raise ValueError(f"tile of {p} pixels exceeds the kernel's {MAX_TILE_PIXELS}")
@@ -113,14 +199,16 @@ def _forward_cuda(stream_payload, row_lo, row_hi, statics: CompositeStatics):
     out = torch.empty((r + 1, 4, p), dtype=torch.float32, device=stream_payload.device)
     out[r].zero_()
     FWD_KERNEL(
-        stream_payload.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(),
+        stream_payload.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(), order.data_ptr(),
         out.data_ptr(), r, *_kernel_args(statics, stream_payload.device),
     )
     return out
 
 
-def _backward_cuda(stream_payload, row_lo, row_hi, out4, g4, statics: CompositeStatics):
-    """Launch kernel B2 on inputs the forward already checked."""
+def _backward_cuda(stream_payload, row_lo, row_hi, order, out4, g4,
+                   statics: CompositeStatics):
+    """Launch kernel B2 on inputs the forward already checked, its CTAs
+    taking the rows in the forward's `order`."""
     r = row_lo.shape[0]
     if g4.shape != out4.shape or g4.dtype != torch.float32:
         raise ValueError(f"gradient {tuple(g4.shape)} {g4.dtype} does not match the "
@@ -128,7 +216,7 @@ def _backward_cuda(stream_payload, row_lo, row_hi, out4, g4, statics: CompositeS
     g4 = g4.contiguous()
     d_stream = torch.zeros_like(stream_payload)
     BWD_KERNEL(
-        stream_payload.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(),
+        stream_payload.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(), order.data_ptr(),
         out4.data_ptr(), g4.data_ptr(), d_stream.data_ptr(), r,
         *_kernel_args(statics, stream_payload.device),
     )
@@ -141,21 +229,28 @@ class _CompositeStream(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, stream_payload, row_lo, row_hi, statics):
+        ctx.statics = statics
         if stream_payload.device.type == "cpu":
             out = composite_stream_reference(stream_payload, row_lo, row_hi, statics)
-        else:
-            out = _forward_cuda(stream_payload, row_lo, row_hi, statics)
-        ctx.statics = statics
-        ctx.save_for_backward(stream_payload, row_lo, row_hi, out)
+            ctx.save_for_backward(stream_payload, row_lo, row_hi, out)
+            return out
+        order = row_order(row_lo, row_hi)
+        out = _forward_cuda(stream_payload, row_lo, row_hi, order, statics)
+        ctx.save_for_backward(stream_payload, row_lo, row_hi, out, order)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g4):
-        stream_payload, row_lo, row_hi, out4 = ctx.saved_tensors
-        backward = (composite_stream_backward_reference
-                    if stream_payload.device.type == "cpu" else _backward_cuda)
-        return backward(stream_payload, row_lo, row_hi, out4, g4, ctx.statics), None, None, None
+        saved = ctx.saved_tensors
+        if saved[0].device.type == "cpu":
+            stream_payload, row_lo, row_hi, out4 = saved
+            d = composite_stream_backward_reference(stream_payload, row_lo, row_hi, out4, g4,
+                                                    ctx.statics)
+        else:
+            stream_payload, row_lo, row_hi, out4, order = saved
+            d = _backward_cuda(stream_payload, row_lo, row_hi, order, out4, g4, ctx.statics)
+        return d, None, None, None
 
 
 def composite_stream(

@@ -89,14 +89,19 @@ ATOL, RTOL = 1e-4, 1e-4
 # Peak rates of an H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# fp32 operations of the compositor.  At every (evaluated stream slot,
-# pixel): alpha (dx, dy, five products and three sums of the conic form,
-# scale, min, exp, opacity product, clip, threshold select = 16).  Only at
-# the pairs the slot touches (alpha >= threshold), the blend: w = alpha T,
-# four multiply-adds, T *= 1 - alpha = 10.
+# fp32 operations the compositor's function needs, charged only at the
+# (slot, pixel) pairs a slot touches (alpha >= threshold, CompositeWork.
+# touched): elsewhere alpha is 0, and an implementation may find that out
+# without evaluating it (the packed kernels skip the pixels outside a
+# slot's box), so the bound counts the same work whatever implements it.
+# Its bytes, likewise, are the payload rows of the slots the function
+# visits (CompositeWork.slots), not the padding of the buffer they lie in.
+# Alpha: dx, dy, five products and three sums of the conic form, scale,
+# min, exp, opacity product, clip, threshold select = 16.  The forward's
+# blend: w = alpha T, four multiply-adds, T *= 1 - alpha = 10.
 ALPHA_OPS = 16
 BLEND_OPS = 10
-# The backward kernel, at touched pairs only: w (1); cg = c4 . g4 (7);
+# The backward's gradient: w (1); cg = c4 . g4 (7);
 # r += w cg (2); 1 - alpha, tot - r, the division, T cg and their
 # difference (5); the clip select and g_pw (2); the two mean gradients (5
 # each); the three conic gradients (4, 3, 4); the opacity gradient (2);
@@ -280,10 +285,10 @@ def measure_forward(label, kernel, plain, colour_max, threshold, nbytes, p, reps
     ok = outliers == 0 and err <= jump
     ms = event_ms(kernel, reps)
     plain_ms = event_ms(lambda: plain(False), max(2, reps // 10), warmup=1)
-    bound_ms, bound_by = roofline(nbytes(work), ALPHA_OPS * work.slots * p
-                                  + BLEND_OPS * work.touched)
+    bound_ms, bound_by = roofline(nbytes(work), (ALPHA_OPS + BLEND_OPS) * work.touched)
     res = dict(
         label=label, **meta, evaluated_slots=work.slots, touched_slot_pixels=work.touched,
+        touched_share=work.touched / max(1, work.slots * p),
         max_abs_err=err, tie_pixels=ties, outliers_at_ties=tie_outliers,
         outliers_elsewhere=outliers, allclose=ok,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -327,10 +332,10 @@ def measure_gradient(label, kernel, plain, g4, work, nbytes, p, reps, **meta):
         del off_ties
     ok = outliers_off_ties == 0
     ms = event_ms(lambda: kernel(g4), reps)
-    bound_ms, bound_by = roofline(nbytes, ALPHA_OPS * work.slots * p
-                                  + BWD_TOUCHED_OPS * work.touched)
+    bound_ms, bound_by = roofline(nbytes, (ALPHA_OPS + BWD_TOUCHED_OPS) * work.touched)
     res = dict(
         label=label, **meta, evaluated_slots=work.slots, touched_slot_pixels=work.touched,
+        touched_share=work.touched / max(1, work.slots * p),
         max_abs_err=err, largest_gradient=largest, tie_pixels=ties, outliers=outliers,
         max_abs_err_off_ties=err_off_ties, outliers_off_ties=outliers_off_ties,
         allclose=ok, deterministic=True,
@@ -353,19 +358,21 @@ def _stream_meta(stream, lo, hi, statics):
 
 def measure_backward(label, call, reps):
     """Kernel B2 vs its plain version on one captured call of its launcher
-    (stream, row_lo, row_hi, out4, g4, statics)."""
+    (stream, row_lo, row_hi, order, out4, g4, statics).  The function reads
+    the payload rows of the slots it visits and writes their gradient rows
+    (the rest of the stream buffer is padding the allocation zeroes), and
+    reads the row bounds, out4 and g4."""
     import torch
 
     from casualhdrsplat_torch.ops import rasterize_packed as rp
 
-    stream, lo, hi, out4, g4, statics = call
+    stream, lo, hi, order, out4, g4, statics = call
     with torch.no_grad():
         _, work = rp.composite_stream_reference(stream, lo, hi, statics, return_work=True)
     rows, p = lo.shape[0], statics.tile_h * statics.tile_w
-    # stream read and gradient written once, out4 and g4 read once
-    nbytes = 2 * stream.numel() * 4 + 2 * rows * 4 + 2 * (rows + 1) * 4 * p * 4
+    nbytes = 2 * work.slots * 64 + 2 * rows * 4 + 2 * (rows + 1) * 4 * p * 4
     return measure_gradient(
-        label, lambda g: rp._backward_cuda(stream, lo, hi, out4, g, statics),
+        label, lambda g: rp._backward_cuda(stream, lo, hi, order, out4, g, statics),
         lambda g: rp.composite_stream_backward_reference(stream, lo, hi, out4, g, statics),
         g4, work, nbytes, p, reps,
         **_stream_meta(stream, lo, hi, statics))
@@ -373,16 +380,18 @@ def measure_backward(label, call, reps):
 
 def measure_compositor(label, call, launches_per_request, reps):
     """Kernel B1 vs its plain version on one captured call of
-    composite_stream (stream, row_lo, row_hi, statics)."""
+    composite_stream (stream, row_lo, row_hi, statics).  The function reads
+    the payload rows of the slots it composites (not the padding of the
+    stream buffer) and the row bounds, and writes every row's tile."""
     from casualhdrsplat_torch.ops import rasterize_packed as rp
 
     stream, lo, hi, statics = call
     rows, p = lo.shape[0], statics.tile_h * statics.tile_w
-    nbytes = stream.numel() * 4 + 2 * rows * 4 + (rows + 1) * 4 * p * 4
     return measure_forward(
         label, lambda: rp.composite_stream(stream, lo, hi, statics),
         lambda work: rp.composite_stream_reference(stream, lo, hi, statics, return_work=work),
-        float(stream[:, 6:10].max()), statics.alpha_threshold, lambda work: nbytes, p, reps,
+        float(stream[:, 6:10].max()), statics.alpha_threshold,
+        lambda work: work.slots * 64 + 2 * rows * 4 + (rows + 1) * 4 * p * 4, p, reps,
         launches_per_request=launches_per_request, **_stream_meta(stream, lo, hi, statics))
 
 
@@ -661,7 +670,7 @@ def train_phase(device, dataset, rp):
     bwd_call, = capture_calls(rp, "_backward_cuda", lambda: trainer.loss_and_grads(frame))
     res = measure_backward("train_step", bwd_call, reps=10)
     with torch.no_grad():
-        measure_compositor("train_step_forward", bwd_call[:3] + bwd_call[5:], 1, reps=10)
+        measure_compositor("train_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=10)
     del bwd_call
     if "--profile" in sys.argv[1:]:
         profile_window("train_step", trainer.run_step)
@@ -990,7 +999,7 @@ def bench_shapes(device):
 
     bwd_call, = capture_calls(rp, "_backward_cuda", fwd_bwd)
     with torch.no_grad():
-        measure_compositor("bench_16x16", bwd_call[:3] + bwd_call[5:], 1, reps=20)
+        measure_compositor("bench_16x16", bwd_call[:3] + bwd_call[6:], 1, reps=20)
     measure_backward("bench_16x16", bwd_call, reps=20)
 
 

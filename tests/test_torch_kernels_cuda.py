@@ -32,6 +32,8 @@ from casualhdrsplat_torch.ops import rasterize_dense as rd
 from casualhdrsplat_torch.ops import rasterize_packed as rp
 from casualhdrsplat_torch.ops.composite import CompositeStatics
 
+import test_torch_slot_boxes as box_cases
+
 pytestmark = pytest.mark.cuda
 
 
@@ -43,14 +45,18 @@ def cuda():
 
 
 def _stream_case(seed, tile_h, tile_w, ntx, nty, views, chunk, per_tile, device,
-                 opacity=(0.05, 0.99)):
+                 opacity=(0.05, 0.99), heavy_last=False):
     """A random depth-sorted stream with per-row segments of 0..2*per_tile
     entries, laid out as the rasterizer lays them out (rows of one view
-    are contiguous and start mid-window); every fifth row is empty."""
+    are contiguous and start mid-window); every fifth row is empty.  With
+    `heavy_last` the segments grow with the row index, so the longest rows
+    are last in blockIdx order."""
     rng = np.random.default_rng(seed)
     rows = views * ntx * nty
     seg = rng.integers(0, 2 * per_tile, size=rows)
     seg[::5] = 0  # empty tiles
+    if heavy_last:
+        seg = np.sort(seg)
     lo = np.concatenate([[3], 3 + np.cumsum(seg)[:-1]])
     m = -(-(int(lo[-1] + seg[-1]) + 1) // chunk) * chunk
     stream = np.zeros((m, binning.PAYLOAD_DIM), np.float32)
@@ -109,6 +115,12 @@ def _bwd_inputs(case, seed):
     return out4, g4
 
 
+def _backward(stream, lo, hi, out4, g4, statics):
+    """Kernel B2, its CTAs taking the rows in the order composite_stream's
+    forward gives them."""
+    return rp._backward_cuda(stream, lo, hi, rp.row_order(lo, hi), out4, g4, statics)
+
+
 def _assert_grad_close(got, ref):
     scale = float(ref.abs().max())
     assert scale > 0.0
@@ -126,7 +138,7 @@ def test_backward_kernel_matches_plain_version(cuda, tile_h, tile_w, chunk):
     stream, lo, hi, statics = case
     out4, g4 = _bwd_inputs(case, 1)
     before = rp.BWD_KERNEL.launches
-    d = rp._backward_cuda(stream, lo, hi, out4, g4, statics)
+    d = _backward(stream, lo, hi, out4, g4, statics)
     torch.cuda.synchronize()
     assert rp.BWD_KERNEL.launches == before + 1
     ref = rp.composite_stream_backward_reference(stream, lo, hi, out4, g4, statics)
@@ -145,7 +157,7 @@ def test_backward_kernel_large_tile(cuda):
     case = _stream_case(2, 32, 128, 2, 1, 1, 128, 200, cuda)
     stream, lo, hi, statics = case
     out4, g4 = _bwd_inputs(case, 3)
-    d = rp._backward_cuda(stream, lo, hi, out4, g4, statics)
+    d = _backward(stream, lo, hi, out4, g4, statics)
     ref = rp.composite_stream_backward_reference(stream, lo, hi, out4, g4, statics)
     _assert_grad_close(d, ref)
 
@@ -155,8 +167,8 @@ def test_backward_kernel_is_deterministic(cuda):
     case = _stream_case(4, 16, 128, 3, 2, 2, 128, 300, cuda)
     stream, lo, hi, statics = case
     out4, g4 = _bwd_inputs(case, 5)
-    a = rp._backward_cuda(stream, lo, hi, out4, g4, statics)
-    b = rp._backward_cuda(stream, lo, hi, out4, g4, statics)
+    a = _backward(stream, lo, hi, out4, g4, statics)
+    b = _backward(stream, lo, hi, out4, g4, statics)
     assert torch.equal(a, b)
 
 
@@ -169,7 +181,7 @@ def test_backward_early_stop_leaves_skipped_windows_zero(cuda):
     stream[:, 3] = 0.0
     case = (stream, lo, hi, statics)
     out4, g4 = _bwd_inputs(case, 7)
-    d = rp._backward_cuda(stream, lo, hi, out4, g4, statics)
+    d = _backward(stream, lo, hi, out4, g4, statics)
     ref = rp.composite_stream_backward_reference(stream, lo, hi, out4, g4, statics)
     _assert_grad_close(d, ref)
     untouched = (d[:, :9].abs().amax(1) == 0) & (stream[:, 9] > 0)
@@ -205,6 +217,133 @@ def test_function_gradient_on_card(cuda):
             fd = ((rp.composite_stream(plus, lo, hi, statics)
                    - rp.composite_stream(minus, lo, hi, statics)) * g4).sum() / (2 * h)
             assert abs(float(fd) - float(d[row, col])) <= 2e-2 * scale, (row, col)
+
+
+def _adversarial(case):
+    """The case's stream with slots the box must get right: every 7th
+    conic not positive definite (cxx < 0, det < 0, or zero), every 11th
+    near singular, every 5th opacity under the threshold, every 13th at
+    it, every 17th at the clip, every 19th centre far off its tile."""
+    stream, lo, hi, statics = case
+    s = stream.clone()
+    n = torch.arange(s.shape[0], device=s.device)
+    owned = s[:, 9] > 0
+
+    def sel(k):
+        return owned & (n % k == 0)
+
+    s[sel(11), 3] = torch.sqrt(s[sel(11), 2] * s[sel(11), 4]) * (1 - 1e-4)
+    s[sel(7), 2] = -s[sel(7), 2]
+    s[sel(14), 3] = 2.0 * s[sel(14), 4]
+    s[sel(21), 2:5] = 0.0
+    s[sel(5), 5] = 0.5 * statics.alpha_threshold
+    s[sel(13), 5] = statics.alpha_threshold
+    s[sel(17), 5] = statics.alpha_clip
+    s[sel(19), 0] += 300.0
+    return s, lo, hi, statics
+
+
+TILE_SHAPES = [
+    (16, 128, 128),  # the default config
+    (16, 16, 128),  # bench.py's tiles
+    (8, 20, 32),  # tile_w not a multiple of 16
+    (16, 16, 1024),  # long windows
+    (32, 128, 128),  # 4096 pixels: 16 a thread forward, B2's 512-thread variant
+]
+
+
+@pytest.mark.parametrize("tile_h,tile_w,chunk", TILE_SHAPES)
+def test_kernels_on_adversarial_slots(cuda, tile_h, tile_w, chunk):
+    """Non-positive-definite, near-singular, sub-threshold, at-threshold,
+    at-clip and far-off slots: B1 and B2 against their plain versions."""
+    case = _adversarial(_stream_case(12, tile_h, tile_w, 3, 2, 2, chunk, 200, cuda))
+    stream, lo, hi, statics = case
+    out4 = rp.composite_stream(*case)
+    torch.testing.assert_close(out4, rp.composite_stream_reference(*case),
+                               atol=1e-4, rtol=1e-4)
+    g4 = torch.randn(out4.shape, generator=torch.Generator().manual_seed(13)).to(cuda)
+    d = _backward(stream, lo, hi, out4, g4, statics)
+    _assert_grad_close(d, rp.composite_stream_backward_reference(stream, lo, hi, out4, g4,
+                                                                 statics))
+
+
+@pytest.mark.parametrize("tile_h,tile_w,chunk", [(16, 128, 128), (16, 16, 128)])
+def test_heavy_rows_last_in_block_order(cuda, tile_h, tile_w, chunk):
+    """Rows laid out shortest first, so the longest are last in blockIdx
+    order: the kernels' row order takes them first, and nothing about the
+    result depends on it; B2 gives equal bits over two launches."""
+    case = _stream_case(14, tile_h, tile_w, 3, 2, 2, chunk, 300, cuda, heavy_last=True)
+    stream, lo, hi, statics = case
+    seg = hi - lo
+    assert int(seg.argmax()) > lo.shape[0] // 2 and seg[rp.row_order(lo, hi)[0]] == seg.max()
+    out4 = rp.composite_stream(*case)
+    torch.testing.assert_close(out4, rp.composite_stream_reference(*case),
+                               atol=1e-4, rtol=1e-4)
+    g4 = torch.randn(out4.shape, generator=torch.Generator().manual_seed(15)).to(cuda)
+    d = _backward(stream, lo, hi, out4, g4, statics)
+    _assert_grad_close(d, rp.composite_stream_backward_reference(stream, lo, hi, out4, g4,
+                                                                 statics))
+    assert torch.equal(d, _backward(stream, lo, hi, out4, g4, statics))
+
+
+@pytest.mark.parametrize("name", box_cases.CASES)
+def test_kernel_slot_box_is_slot_boxes(cuda, name):
+    """The box the kernels stage (packed_tiles.cuh) equals
+    rasterize_packed.slot_boxes, computed on the CPU, on every case the CPU
+    tests hold slot_boxes to."""
+    stream, _, _, statics, origin = box_cases._stream(name, 3)
+    ox, oy = origin[:, 0].int(), origin[:, 1].int()
+    got = rp._slot_boxes_cuda(stream.to(cuda), ox.to(cuda), oy.to(cuda), statics)
+    assert torch.equal(got.cpu(), rp.slot_boxes(stream, ox, oy, statics))
+
+
+def test_kernel_slot_box_of_non_finite_colours(cuda):
+    stream, _, _, statics, origin, idx, _ = box_cases._non_finite_colours(5)
+    ox, oy = origin[:, 0].int(), origin[:, 1].int()
+    got = rp._slot_boxes_cuda(stream.to(cuda), ox.to(cuda), oy.to(cuda), statics).cpu()
+    assert torch.equal(got, rp.slot_boxes(stream, ox, oy, statics))
+    assert bool((got[idx] == torch.tensor([0, statics.tile_w - 1, 0, statics.tile_h - 1])).all())
+
+
+@pytest.mark.parametrize("name", box_cases.CASES)
+def test_kernels_on_the_box_cases(cuda, name):
+    """B1 and B2 against their plain versions on the CPU tests' box cases
+    (pixels on the threshold ellipse, opacity a float32 step around the
+    threshold, conics near singular, a clip under the threshold, ...).  A
+    pixel where the plain version finds an alpha within rounding of the
+    threshold (CompositeWork.tie_pixels) may differ by the one slot of
+    alpha = threshold, at most 2 x threshold x the largest colour, as in
+    chip_smoke.py; the backward is compared with g4 zeroed there."""
+    stream, lo, hi, statics, _ = box_cases._stream(name, 4)
+    stream, lo, hi = stream.to(cuda), lo.to(cuda), hi.to(cuda)
+    out4 = rp.composite_stream(stream, lo, hi, statics)
+    ref, work = rp.composite_stream_reference(stream, lo, hi, statics, return_work=True)
+    diff = (out4 - ref).abs()
+    off = diff > 1e-4 + 1e-4 * ref.abs()
+    assert not bool((off & ~work.tie_pixels[:, None, :]).any())
+    assert float(diff.max()) <= 2.0 * statics.alpha_threshold * max(
+        1.0, float(stream[:, binning.COL_R:binning.COL_ONE + 1].max()))
+    g4 = torch.randn(out4.shape, generator=torch.Generator().manual_seed(17)).to(cuda)
+    g4 = g4 * ~work.tie_pixels[:, None, :]
+    d = _backward(stream, lo, hi, out4, g4, statics)
+    ref_d = rp.composite_stream_backward_reference(stream, lo, hi, out4, g4, statics)
+    if name == "clip_below_threshold":  # no slot reaches any pixel
+        assert float(d.abs().max()) == 0.0 and float(ref_d.abs().max()) == 0.0
+    else:
+        _assert_grad_close(d, ref_d)
+
+
+def test_forward_with_non_finite_colours(cuda):
+    """A slot with a colour that is not finite turns every pixel of its
+    tile non-finite in the plain forward (c * 0 is NaN); B1 gives it the
+    whole tile and agrees, NaN for NaN.  (The backward of such a stream is
+    not finite in either version, at elements that need not match.)"""
+    stream, lo, hi, statics, *_ = box_cases._non_finite_colours(5)
+    stream, lo, hi = stream.to(cuda), lo.to(cuda), hi.to(cuda)
+    out4 = rp.composite_stream(stream, lo, hi, statics)
+    ref = rp.composite_stream_reference(stream, lo, hi, statics)
+    assert not bool(ref.isfinite().all())
+    torch.testing.assert_close(out4, ref, atol=1e-4, rtol=1e-4, equal_nan=True)
 
 
 def test_wrapper_runs_under_inference_mode(cuda):
