@@ -28,7 +28,7 @@
 // every run.  Each thread keeps T, r, out4 . g4 and the four g4 values of
 // its pixels in registers.  A window is staged in shared memory in pieces
 // of SUB slots.  The forward's design carries over:
-// - the slot box (`slot_box` in packed_tiles.cuh, the forward's own) is
+// - the slot box (`slot_box` in tile_boxes.cuh, the forward's own) is
 //   computed per staged slot; outside it alpha is 0, where the gradient
 //   has no term;
 // - the mapping gives each warp a compact block of the tile (strips of 8
@@ -60,11 +60,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "packed_tiles.cuh"
+#include "tile_boxes.cuh"
 
 namespace {
 
-using namespace packed_tiles;
+using namespace tile_boxes;
 
 // gradient columns = payload columns 0..8: mx, my, cxx, cxy, cyy, opa, r, g, b
 constexpr int kGradCols = 9;

@@ -26,7 +26,7 @@
 // written once, at the end.
 //
 // - The slot box.  When a window is staged, each slot's pixel box goes
-//   into shared memory beside its row (`slot_box`, packed_tiles.cuh,
+//   into shared memory beside its row (`slot_box`, tile_boxes.cuh,
 //   shared with the backward): the bounding box of the ellipse where alpha
 //   can reach the threshold, padded against float rounding and clipped to
 //   the tile (empty when opa or the clip is under the threshold; the whole
@@ -65,11 +65,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "packed_tiles.cuh"
+#include "tile_boxes.cuh"
 
 namespace {
 
-using namespace packed_tiles;
+using namespace tile_boxes;
 
 constexpr int kMaxWarps = 8;
 

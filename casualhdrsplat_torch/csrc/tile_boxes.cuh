@@ -1,7 +1,9 @@
-// Device and host code shared by the packed compositor kernels,
-// rasterize_packed_fwd.cu (B1) and rasterize_packed_bwd.cu (B2): the slot
-// box, the pixel mapping and its plan.  Both kernels must skip exactly the
-// same pixels, so they take them from this one header.
+// Device and host code shared by the four compositor kernels: the packed
+// ones, rasterize_packed_fwd.cu (B1) and rasterize_packed_bwd.cu (B2), and
+// the dense ones, rasterize_dense_fwd.cu (B3) and rasterize_dense_bwd.cu
+// (B4): the slot box, the pixel mapping and its plan, and the dense
+// kernels' asynchronous row copies.  A forward kernel and its backward must
+// skip exactly the same pixels, so they take them from this one header.
 // rasterize_packed.slot_boxes is the box formula in PyTorch.
 
 #pragma once
@@ -9,7 +11,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace packed_tiles {
+namespace tile_boxes {
 
 constexpr int kPayloadDim = 16;
 constexpr unsigned kFull = 0xffffffffu;
@@ -106,4 +108,46 @@ inline bool plan(int tile_h, int tile_w, int max_warps, int max_ppt, int* sw_log
   return false;
 }
 
-}  // namespace packed_tiles
+// 16-byte asynchronous copy from device to shared memory (cp.async, L2
+// only: a payload row is read once per tile), and its group bookkeeping.
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The 16-byte parts of a payload row the dense kernels stage: columns
+// 0..11, the ones they read.
+constexpr int kStagedParts = 3;
+
+// Stage slots [s0, s0 + n) of a dense list into `dst` (kStagedParts float4
+// a slot) by asynchronous copies, and, where `row_of` is given, each slot's
+// row into it: slot k is row list[k] of `base`, or row k of it where the
+// list is the table's own (list == nullptr).  A row outside [0, nrows) is
+// not read: the slot is staged as a zero row (opacity 0, so it touches no
+// pixel) and its row_of is -1.  The caller commits the group.
+__device__ __forceinline__ void stage_rows(float4* dst, int* row_of, const float4* base,
+                                           const int* list, int nrows, int s0, int n) {
+  for (int q = threadIdx.x; q < n * kStagedParts; q += blockDim.x) {
+    const int k = q / kStagedParts;
+    const int part = q - k * kStagedParts;
+    const int row = list ? __ldg(list + s0 + k) : s0 + k;
+    const bool in = (unsigned)row < (unsigned)nrows;
+    if (row_of && part == 0) row_of[k] = in ? row : -1;
+    if (in)
+      copy_async16(dst + q, base + (size_t)row * (kPayloadDim / 4) + part);
+    else
+      dst[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+}  // namespace tile_boxes

@@ -10,8 +10,9 @@ the reference's exactly; that needs stable sorts, since `jnp.argsort` and
 
 The sorted stream feeds both rasterizers: the packed path compacts it to a
 stream budget (`waterfill_segments`, `compact_stream_ids`), the dense path
-cuts it into a [tiles, capacity] id table (`assign_tiles_arrays`) and
-gathers the payload rows into [tiles, capacity, 16] (`gather_payload`).
+cuts it into a [tiles, capacity] id table (`assign_tiles_arrays`), through
+which its kernels read the payload rows; `gather_payload` gathers them into
+a [tiles, capacity, 16] table for the plain compositor of backend "xla".
 """
 
 from __future__ import annotations

@@ -10,15 +10,26 @@ function takes leading batch dimensions (tiles), which the reference
 vmaps.  The plain versions of both compositors are built from them: the
 streaming one in ops/rasterize_packed.py, the dense one here.
 
-`composite_tiles` composites a gathered payload table [tiles, capacity,
-16] (binning.gather_payload) and is differentiable in it:
+The dense compositor takes per-tile depth-ordered lists in two forms, one
+kernel per direction for both:
+- `composite_tile_lists` reads payload rows [V (N + 1), 16] through the
+  [tiles, capacity] id table of binning.assign_tiles_arrays and is
+  differentiable in the rows: the dense path of ops/rasterize.py, which so
+  makes no gathered table;
+- `composite_tiles` composites a gathered payload table [tiles, capacity,
+  16] (binning.gather_payload) and is differentiable in it: the
+  reference's interface, kept for `backend="xla"` and for callers that
+  hold a table.
+Either way:
 - on CUDA tensors the forward launches csrc/rasterize_dense_fwd.cu and the
   backward csrc/rasterize_dense_bwd.cu through ops/rasterize_dense.py (or
   they raise);
 - on CPU tensors they run `composite_tiles_reference` and
-  `composite_tiles_backward_reference` on the kernels' schedule: only the
-  ceil(counts / G) occupied chunks of a tile, and none after the tile's
-  largest transmittance fell below `transmittance_eps`;
+  `composite_tiles_backward_reference` (for the list form on the gathered
+  lists, `composite_tile_lists_reference` and its backward) on the
+  kernels' schedule: only the ceil(counts / G) occupied chunks of a tile,
+  and none after the tile's largest transmittance fell below
+  `transmittance_eps`;
 - with `statics.backend == "xla"` they run the same plain versions without
   that schedule (every chunk, no early stop) on whatever device the
   tensors are: the reference's XLA compositor, an explicit request of the
@@ -84,6 +95,9 @@ class CompositeWork(NamedTuple):
     # rounding of alpha_threshold.  The function jumps there, so two correct
     # evaluations may take different sides.
     tie_pixels: torch.Tensor
+    # [tiles, capacity] bool, the dense compositor only: which list slots
+    # those are
+    slots_read: Optional[torch.Tensor] = None
 
 
 def tile_origin(tile_index: torch.Tensor, statics: CompositeStatics):
@@ -268,6 +282,7 @@ def composite_tiles_reference(
     slots = torch.zeros((), dtype=torch.int64, device=dev)
     touched = torch.zeros((), dtype=torch.int64, device=dev)
     tie_pixels = torch.zeros((tt, p), dtype=torch.bool, device=dev)
+    slots_read = torch.zeros((tt, cap), dtype=torch.bool, device=dev) if return_work else None
     for rows in _tile_batches(tt, statics, 1, dev):
         ox, oy = tile_origin(tile_indices[rows], statics)
         px, py = pixel_coords(ox, oy, statics.tile_h, statics.tile_w)
@@ -288,12 +303,13 @@ def composite_tiles_reference(
             t[sel] = t_out
             if return_work:
                 slots += in_list.sum()
+                slots_read[rows[sel], k * statics.chunk:(k + 1) * statics.chunk] = in_list
                 pairs, ties = chunk_work(chunk, px[sel], py[sel], in_list, statics)
                 touched += pairs
                 tie_pixels[rows[sel]] |= ties
         out[rows] = acc
     if return_work:
-        return out, CompositeWork(int(slots), int(touched), tie_pixels)
+        return out, CompositeWork(int(slots), int(touched), tie_pixels, slots_read)
     return out
 
 
@@ -346,29 +362,84 @@ def composite_tiles_backward_reference(
     return d_gathered
 
 
+def list_rows(rows, ids, tile_indices, counts, statics: CompositeStatics):
+    """The rows of the flattened payload that the list form reads:
+    (row index [tt, capacity], in_list [tt, capacity]).  Slot k of tile i
+    is row (tile_indices[i] // tiles_per_view) * (N + 1) + ids[i, k] for
+    k < counts[i].  A slot whose id lies outside [0, N + 1), and every slot
+    of a tile whose view lies outside [0, num_views), reads nothing (as in
+    the kernels); such slots and those from counts on have index 0 and are
+    not in the list."""
+    view_rows = rows.shape[0] // statics.num_views
+    view = tile_indices.long() // (statics.tiles_per_view or statics.ntx * statics.nty)
+    ids = ids.long()
+    in_list = ((torch.arange(ids.shape[1], device=ids.device)[None, :] < counts[:, None])
+               & ((view >= 0) & (view < statics.num_views))[:, None]
+               & (ids >= 0) & (ids < view_rows))
+    return torch.where(in_list, view[:, None] * view_rows + ids, 0), in_list
+
+
+def gather_lists(rows, ids, tile_indices, counts, statics: CompositeStatics):
+    """The list form as a table [tt, capacity, 16] plus the slots it reads:
+    (table, row index [tt, capacity], in_list [tt, capacity]) with
+    `list_rows`' index and in_list; slots not in the list are zero rows."""
+    index, in_list = list_rows(rows, ids, tile_indices, counts, statics)
+    table = torch.index_select(rows, 0, index.reshape(-1)).reshape(ids.shape + (-1,))
+    return torch.where(in_list[..., None], table, 0.0), index, in_list
+
+
+def composite_tile_lists_reference(rows, ids, tile_indices, counts, statics: CompositeStatics,
+                                   kernel_schedule: bool = True, return_work: bool = False):
+    """Plain PyTorch version of `composite_tile_lists` on any device: the
+    lists gathered (`gather_lists`), then `composite_tiles_reference`."""
+    table, _, _ = gather_lists(rows, ids, tile_indices, counts, statics)
+    return composite_tiles_reference(table, tile_indices, counts, statics,
+                                     kernel_schedule=kernel_schedule, return_work=return_work)
+
+
+def composite_tile_lists_backward_reference(rows, ids, tile_indices, counts, out4, g4,
+                                            statics: CompositeStatics,
+                                            kernel_schedule: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the list form's backward on any device: the
+    gradient of `rows`.  `composite_tiles_backward_reference` on the
+    gathered lists, whose slots' gradients are added into their rows with
+    `index_add_`; slots from counts on add nothing, so the pad row gets no
+    gradient from them."""
+    table, index, in_list = gather_lists(rows, ids, tile_indices, counts, statics)
+    d_table = composite_tiles_backward_reference(table, tile_indices, counts, out4, g4,
+                                                 statics, kernel_schedule=kernel_schedule)
+    d_rows = torch.zeros_like(rows)
+    d_rows.index_add_(0, index[in_list], d_table[in_list])
+    return d_rows
+
+
 # --------------------------------------------------------------------------
-# The differentiable entry point
+# The differentiable entry points
 # --------------------------------------------------------------------------
 
 
 class _CompositeTiles(torch.autograd.Function):
     """Forward kernel B3 and backward kernel B4 (their plain versions on
     CPU tensors, or for backend "xla") as one differentiable function of
-    the gathered table."""
+    the lists' rows: the list form's payload rows where `ids` is given,
+    else the gathered table."""
 
     @staticmethod
-    def forward(ctx, gathered, tile_indices, counts, statics):
+    def forward(ctx, rows, ids, tile_indices, counts, statics):
         from casualhdrsplat_torch.ops import rasterize_dense
 
-        if statics.backend == "xla":
-            out = composite_tiles_reference(gathered, tile_indices, counts, statics,
-                                            kernel_schedule=False)
-        elif gathered.device.type == "cpu":
-            out = composite_tiles_reference(gathered, tile_indices, counts, statics)
+        if statics.backend == "xla" or rows.device.type == "cpu":
+            schedule = statics.backend != "xla"
+            if ids is None:
+                out = composite_tiles_reference(rows, tile_indices, counts, statics,
+                                                kernel_schedule=schedule)
+            else:
+                out = composite_tile_lists_reference(rows, ids, tile_indices, counts, statics,
+                                                     kernel_schedule=schedule)
         else:
-            out = rasterize_dense.forward(gathered, tile_indices, counts, statics)
+            out = rasterize_dense.forward(rows, tile_indices, counts, statics, ids)
         ctx.statics = statics
-        ctx.save_for_backward(gathered, tile_indices, counts, out)
+        ctx.save_for_backward(rows, ids, tile_indices, counts, out)
         return out
 
     @staticmethod
@@ -376,16 +447,65 @@ class _CompositeTiles(torch.autograd.Function):
     def backward(ctx, g4):
         from casualhdrsplat_torch.ops import rasterize_dense
 
-        gathered, tile_indices, counts, out4 = ctx.saved_tensors
+        rows, ids, tile_indices, counts, out4 = ctx.saved_tensors
         statics = ctx.statics
-        args = (gathered, tile_indices, counts, out4, g4, statics)
-        if statics.backend == "xla":
-            d = composite_tiles_backward_reference(*args, kernel_schedule=False)
-        elif gathered.device.type == "cpu":
-            d = composite_tiles_backward_reference(*args)
+        if statics.backend == "xla" or rows.device.type == "cpu":
+            schedule = statics.backend != "xla"
+            if ids is None:
+                d = composite_tiles_backward_reference(rows, tile_indices, counts, out4, g4,
+                                                       statics, kernel_schedule=schedule)
+            else:
+                d = composite_tile_lists_backward_reference(
+                    rows, ids, tile_indices, counts, out4, g4, statics,
+                    kernel_schedule=schedule)
         else:
-            d = rasterize_dense.backward(*args)
-        return d, None, None, None
+            d = rasterize_dense.backward(rows, tile_indices, counts, out4, g4, statics, ids)
+        return d, None, None, None, None
+
+
+def _default_lists(tt: int, cap: int, device, tile_indices, counts):
+    if tile_indices is None:
+        tile_indices = torch.arange(tt, dtype=torch.int32, device=device)
+    if counts is None:
+        counts = torch.full((tt,), cap, dtype=torch.int32, device=device)
+    return tile_indices, counts
+
+
+def composite_tile_lists(
+    rows: torch.Tensor,
+    ids: torch.Tensor,
+    statics: CompositeStatics,
+    tile_indices: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Composite depth-ordered per-tile Gaussian lists read through an id
+    table, without gathering them.
+
+    rows: [V * (N + 1), 16] the payload of V = statics.num_views views
+      (binning.build_payload, flattened over views); row N of each view is
+      the zero pad row.
+    ids: [num_tiles_total, capacity] int32 ids into a view's rows
+      (binning.assign_tiles_arrays, views stacked); tile i reads row
+      (tile_indices[i] // tiles_per_view) * (N + 1) + ids[i, k].
+    tile_indices: [num_tiles_total] int32 global tile index of each entry
+      (origin from index % tiles_per_view); default arange.
+    counts: [num_tiles_total] int32 occupied slots of each list (default:
+      the capacity).  Only ids[i, k] for k < counts[i] are read.  A slot
+      whose id lies outside [0, N + 1) composites as an empty slot, and a
+      tile whose view lies outside [0, num_views) as an empty list: no
+      value of ids or tile_indices reads or writes outside `rows`.
+
+    Returns [num_tiles_total, 4, tile_h * tile_w], equal to
+    `composite_tiles` of the gathered lists, and so is its gradient with
+    respect to `rows`, but for the pad slots' cotangents, which are dropped
+    (the pad row is a constant).
+    """
+    from casualhdrsplat_torch.ops import rasterize_dense
+
+    tile_indices, counts = _default_lists(ids.shape[0], ids.shape[1], ids.device, tile_indices,
+                                          counts)
+    rasterize_dense.check_lists(rows, ids, tile_indices, counts, statics)
+    return _CompositeTiles.apply(rows, ids, tile_indices, counts, statics)
 
 
 def composite_tiles(
@@ -412,11 +532,7 @@ def composite_tiles(
     """
     from casualhdrsplat_torch.ops import rasterize_dense
 
-    tt = gathered.shape[0]
-    if tile_indices is None:
-        tile_indices = torch.arange(tt, dtype=torch.int32, device=gathered.device)
-    if counts is None:
-        counts = torch.full((tt,), gathered.shape[1], dtype=torch.int32,
-                            device=gathered.device)
+    tile_indices, counts = _default_lists(gathered.shape[0], gathered.shape[1],
+                                          gathered.device, tile_indices, counts)
     rasterize_dense.check(gathered, tile_indices, counts, statics)
-    return _CompositeTiles.apply(gathered, tile_indices, counts, statics)
+    return _CompositeTiles.apply(gathered, None, tile_indices, counts, statics)

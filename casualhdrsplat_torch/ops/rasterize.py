@@ -11,8 +11,11 @@ packed (`cfg.packed`, the default):
 
 dense (`cfg.packed = False`):
     projection -> per-view binning into a [tiles, capacity] id table ->
-    payload gather [tiles, capacity, 16] -> per-tile compositor
-    (ops/composite.composite_tiles) -> tile reassembly
+    per-tile compositor reading the payload rows through the id table
+    (ops/composite.composite_tile_lists) -> tile reassembly
+  With `backend="xla"` the payload is gathered into a [tiles, capacity,
+  16] table for the plain compositor (ops/composite.composite_tiles), as
+  the reference does.
   Binning is always per view here; a tile keeps its nearest `tile_capacity`
   entries and the overflow is counted in `aux.num_dropped`.
 
@@ -36,7 +39,11 @@ import torch
 
 from casualhdrsplat_torch.config import RasterizeConfig
 from casualhdrsplat_torch.ops import binning, rasterize_packed
-from casualhdrsplat_torch.ops.composite import CompositeStatics, composite_tiles
+from casualhdrsplat_torch.ops.composite import (
+    CompositeStatics,
+    composite_tile_lists,
+    composite_tiles,
+)
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
 
 
@@ -104,8 +111,9 @@ def _statics(v: int, width: int, height: int, cfg: RasterizeConfig) -> Composite
 
 def _rasterize_dense(projs, payload, width, height, cfg: RasterizeConfig, background):
     """Dense path: every view gets its own [tiles, capacity] id table; the
-    tables stack along the tile axis, so one gather and one compositor
-    launch serve all views."""
+    tables stack along the tile axis, so one compositor launch serves all
+    views.  The kernels read the payload rows through the ids; the plain
+    compositor of backend "xla" takes them gathered."""
     v = projs.depths.shape[0]
     lists = [
         binning.assign_tiles_arrays(
@@ -121,13 +129,17 @@ def _rasterize_dense(projs, payload, width, height, cfg: RasterizeConfig, backgr
         num_dropped=sum(t.num_dropped for t in lists),
         num_clipped=sum(t.num_clipped for t in lists),
     )
-    gathered = binning.gather_payload(payload, tiles)  # [V, T, capacity, 16]
     statics = _statics(v, width, height, cfg)
     tt = v * statics.ntx * statics.nty
-    out4 = composite_tiles(
-        gathered.reshape(tt, cfg.tile_capacity, binning.PAYLOAD_DIM), statics,
-        counts=tiles.counts.reshape(tt),
-    )  # [tt, 4, P]
+    counts = tiles.counts.reshape(tt)
+    if statics.backend == "xla":
+        gathered = binning.gather_payload(payload, tiles)  # [V, T, capacity, 16]
+        out4 = composite_tiles(gathered.reshape(tt, cfg.tile_capacity, binning.PAYLOAD_DIM),
+                               statics, counts=counts)
+    else:
+        out4 = composite_tile_lists(payload.reshape(-1, binning.PAYLOAD_DIM),
+                                    tiles.indices.reshape(tt, cfg.tile_capacity), statics,
+                                    counts=counts)  # [tt, 4, P]
     images, alphas = _assemble_tiles(out4, tt, statics, height, width, background)
     aux = RasterizeAux(radii=projs.radii, depths=projs.depths,
                        num_dropped=tiles.num_dropped, num_clipped=tiles.num_clipped)

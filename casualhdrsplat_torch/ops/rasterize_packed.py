@@ -65,7 +65,7 @@ BWD_KERNEL = CudaKernel(
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
     + [ctypes.c_void_p],
 )
-# The kernels' own slot box (packed_tiles.cuh) launched alone, for tests.
+# The kernels' own slot box (tile_boxes.cuh) launched alone, for tests.
 BOX_KERNEL = CudaKernel(
     "rasterize_packed_fwd.cu",
     "chs_packed_slot_boxes",
@@ -93,7 +93,7 @@ def row_order(row_lo: torch.Tensor, row_hi: torch.Tensor) -> torch.Tensor:
 
 def slot_boxes(payload: torch.Tensor, ox, oy, statics: CompositeStatics) -> torch.Tensor:
     """Pixel box of each slot on its tile, as the kernels compute it
-    (`slot_box` in csrc/packed_tiles.cuh), in float64.
+    (`slot_box` in csrc/tile_boxes.cuh), in float64.
 
     payload [..., 16] rows; ox, oy the origins of the tiles they are
     composited on (broadcast against [...]).  Returns int64 [..., 4]:

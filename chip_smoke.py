@@ -15,11 +15,12 @@
    Checks the outputs (finite, shaped, in range) and that the forward
    kernel was launched on both branches (its count, zeroed just before).
 4. Dense serving of the same model with RasterizeConfig(packed=False,
-   16x16 tiles, capacity 1024, chunk 128): 2 render_frame and 2 render_pose
-   requests, outputs checked, one launch of the dense forward kernel per
-   request, the capacity overflow logged; and, on a 16,384-Gaussian part of
-   the model where neither path drops anything, the dense frame against the
-   packed frame on the same tiles.
+   16x16 tiles, capacity 1024, chunk 128), whose kernels read the payload
+   rows through the [tiles, capacity] id table: 2 render_frame and 2
+   render_pose requests, outputs checked, one launch of the dense forward
+   kernel per request, the capacity overflow and the peak memory logged;
+   and, on a 16,384-Gaussian part of the model where neither path drops
+   anything, the dense frame against the packed frame on the same tiles.
 5. Packed training at the same width: a synthetic casual video (4 frames of
    800x800, 8 virtual views each, a random cloud of 131,072 Gaussians) made
    on the card, a Trainer on PRESETS["ladder4"] with density control off,
@@ -38,15 +39,19 @@
    opacity.
 7. Holds every kernel against its plain PyTorch version on the inputs the
    paths gave it (pixels at a threshold tie exempt, forward and backward;
-   each backward run twice for equal bits), and the
+   each backward run twice: equal bits, but for the dense list form, whose
+   atomics add in an order that changes from run to run: its largest
+   run-to-run difference is logged), the dense kernels also in their table
+   form on the gathered lists of a training step, and the
    slices on the card against the same on the CPU at a small size (the
    rendered frame; the gradients of one packed training step; a dense
    training step, a densify round and the step after it).
 8. Times each kernel with CUDA events at the paths' shapes, the packed ones
    also at the same frame on 16x16 tiles and at bench.py::build's shapes
    (16x16 tiles, 4 views, 100k Gaussians), beside its plain version and its
-   bound; and the dense path's payload gather and its transpose beside
-   autograd's own transpose.
+   bound; and, on a dense training step's lists, the table form the dense
+   kernels replace: the payload gather, the kernels on the table and the
+   gather's transpose.
 9. With --profile, prints the device time of a render_frame request, a
    render_pose request and a training step by kernel (torch.profiler), on
    both paths.
@@ -96,11 +101,17 @@ FP32_FLOPS = 67e12
 # slot's box), so the bound counts the same work whatever implements it.
 # Its bytes, likewise, are the payload rows of the slots the function
 # visits (CompositeWork.slots), not the padding of the buffer they lie in.
+# The dense list form names a payload row from up to max_tiles_per_gaussian
+# tiles: its bound reads each distinct row named once, and only the
+# USED_ROW_BYTES of it that the function uses, plus each visited slot's id.
 # Alpha: dx, dy, five products and three sums of the conic form, scale,
 # min, exp, opacity product, clip, threshold select = 16.  The forward's
 # blend: w = alpha T, four multiply-adds, T *= 1 - alpha = 10.
 ALPHA_OPS = 16
 BLEND_OPS = 10
+# payload columns the compositors use: mx, my, cxx, cxy, cyy, opa, r, g, b,
+# one (4 bytes each)
+USED_ROW_BYTES = 40
 # The backward's gradient: w (1); cg = c4 . g4 (7);
 # r += w cg (2); 1 - alpha, tot - r, the division, T cg and their
 # difference (5); the clip select and g_pw (2); the two mean gradients (5
@@ -285,9 +296,11 @@ def measure_forward(label, kernel, plain, colour_max, threshold, nbytes, p, reps
     ok = outliers == 0 and err <= jump
     ms = event_ms(kernel, reps)
     plain_ms = event_ms(lambda: plain(False), max(2, reps // 10), warmup=1)
-    bound_ms, bound_by = roofline(nbytes(work), (ALPHA_OPS + BLEND_OPS) * work.touched)
+    traffic = nbytes(work)
+    bound_ms, bound_by = roofline(traffic, (ALPHA_OPS + BLEND_OPS) * work.touched)
     res = dict(
         label=label, **meta, evaluated_slots=work.slots, touched_slot_pixels=work.touched,
+        bound_bytes=traffic,
         touched_share=work.touched / max(1, work.slots * p),
         max_abs_err=err, tie_pixels=ties, outliers_at_ties=tie_outliers,
         outliers_elsewhere=outliers, allclose=ok,
@@ -301,9 +314,11 @@ def measure_forward(label, kernel, plain, colour_max, threshold, nbytes, p, reps
     return res
 
 
-def measure_gradient(label, kernel, plain, g4, work, nbytes, p, reps, **meta):
-    """A backward kernel vs its plain version on one input: agreement (two
-    launches must also give the same bits), times, bound.  `kernel(g4)` and
+def measure_gradient(label, kernel, plain, g4, work, nbytes, p, reps, deterministic=True,
+                     **meta):
+    """A backward kernel vs its plain version on one input: agreement (with
+    `deterministic`, two launches must also give the same bits; without,
+    their largest difference is logged), times, bound.  `kernel(g4)` and
     `plain(g4)` return the gradient for the upstream gradient g4 [rows, 4, P].
 
     Every pixel adds its own term to the gradient, linear in its g4.  So
@@ -319,9 +334,11 @@ def measure_gradient(label, kernel, plain, g4, work, nbytes, p, reps, **meta):
         raise AssertionError(f"backward[{label}]: non-finite gradient")
     largest = float(ref.abs().max())
     err, outliers = grad_outliers(d, ref, largest)
-    if not torch.equal(d, kernel(g4)):
+    again = kernel(g4)
+    run_to_run = float((d - again).abs().max())
+    if deterministic and not torch.equal(d, again):
         raise AssertionError(f"backward[{label}]: two launches differ in their bits")
-    del d, ref
+    del d, ref, again
     ties = int(work.tie_pixels.sum())
     err_off_ties, outliers_off_ties = err, outliers
     if outliers and ties:
@@ -335,10 +352,11 @@ def measure_gradient(label, kernel, plain, g4, work, nbytes, p, reps, **meta):
     bound_ms, bound_by = roofline(nbytes, (ALPHA_OPS + BWD_TOUCHED_OPS) * work.touched)
     res = dict(
         label=label, **meta, evaluated_slots=work.slots, touched_slot_pixels=work.touched,
+        bound_bytes=nbytes,
         touched_share=work.touched / max(1, work.slots * p),
         max_abs_err=err, largest_gradient=largest, tie_pixels=ties, outliers=outliers,
         max_abs_err_off_ties=err_off_ties, outliers_off_ties=outliers_off_ties,
-        allclose=ok, deterministic=True,
+        allclose=ok, deterministic=deterministic, run_to_run_max_abs_diff=run_to_run,
         ms=ms, plain_ms=plain_s * 1e3, bound_ms=bound_ms, bound_by=bound_by,
     )
     log(f"backward[{label}]: " + json.dumps(res))
@@ -395,49 +413,111 @@ def measure_compositor(label, call, launches_per_request, reps):
         launches_per_request=launches_per_request, **_stream_meta(stream, lo, hi, statics))
 
 
-def _table_meta(gathered, counts, statics):
-    return dict(tiles=gathered.shape[0], tile=f"{statics.tile_h}x{statics.tile_w}",
-                chunk=statics.chunk, capacity=gathered.shape[1],
+def _list_meta(rows, ids, counts, statics):
+    return dict(tiles=ids.shape[0], tile=f"{statics.tile_h}x{statics.tile_w}",
+                chunk=statics.chunk, capacity=ids.shape[1], payload_rows=rows.shape[0],
                 occupied_slots=int(counts.sum()), fullest_tile=int(counts.max()))
+
+
+def list_read_bytes(rows, ids, ti, counts, statics, work):
+    """Bytes the list form must read for one call: each visited slot's id,
+    USED_ROW_BYTES of each distinct payload row those slots name (once,
+    however many tiles name it), and the tiles' indices and counts."""
+    import torch
+
+    from casualhdrsplat_torch.ops import composite
+
+    index, _ = composite.list_rows(rows, ids, ti, counts, statics)
+    distinct = int(torch.unique(index[work.slots_read]).numel())
+    return distinct * USED_ROW_BYTES + work.slots * 4 + 2 * ids.shape[0] * 4
 
 
 def measure_dense_forward(label, call, launches_per_request, reps):
     """Kernel B3 vs its plain version on one captured call of its launcher
-    (gathered, tile_indices, counts, statics).  The function reads the
-    occupied rows of the lists it visits and writes every tile."""
+    in the list form (rows, tile_indices, counts, statics, ids).  The
+    function reads what `list_read_bytes` counts and writes every tile."""
     from casualhdrsplat_torch.ops import composite, rasterize_dense
 
-    gathered, ti, counts, statics = call
-    tt, p = gathered.shape[0], statics.tile_h * statics.tile_w
+    rows, ti, counts, statics, ids = call
+    tt, p = ids.shape[0], statics.tile_h * statics.tile_w
     return measure_forward(
         label, lambda: rasterize_dense.forward(*call),
-        lambda work: composite.composite_tiles_reference(*call, return_work=work),
-        float(gathered[..., 6:10].max()), statics.alpha_threshold,
-        lambda work: work.slots * 64 + 2 * tt * 4 + tt * 4 * p * 4, p, reps,
-        launches_per_request=launches_per_request, **_table_meta(gathered, counts, statics))
+        lambda work: composite.composite_tile_lists_reference(rows, ids, ti, counts, statics,
+                                                              return_work=work),
+        float(rows[:, 6:10].max()), statics.alpha_threshold,
+        lambda work: list_read_bytes(rows, ids, ti, counts, statics, work) + tt * 4 * p * 4,
+        p, reps, launches_per_request=launches_per_request,
+        **_list_meta(rows, ids, counts, statics))
 
 
 def measure_dense_backward(label, call, reps):
     """Kernel B4 vs its plain version on one captured call of its launcher
-    (gathered, tile_indices, counts, out4, g4, statics).  The function reads
-    the occupied rows it visits, out4 and g4, and writes the whole gradient
-    table, occupied or not."""
+    in the list form (rows, tile_indices, counts, out4, g4, statics, ids).
+    The function reads what `list_read_bytes` counts, out4 and g4, and
+    writes the whole gradient of the rows once.  Its atomics add a row's
+    gradients in an order that changes from run to run: no bit equality."""
     import torch
 
     from casualhdrsplat_torch.ops import composite, rasterize_dense
 
-    gathered, ti, counts, out4, g4, statics = call
+    rows, ti, counts, out4, g4, statics, ids = call
     with torch.no_grad():
-        _, work = composite.composite_tiles_reference(gathered, ti, counts, statics,
-                                                      return_work=True)
-    tt, p = gathered.shape[0], statics.tile_h * statics.tile_w
-    nbytes = work.slots * 64 + 2 * tt * 4 + 2 * tt * 4 * p * 4 + gathered.numel() * 4
+        _, work = composite.composite_tile_lists_reference(rows, ids, ti, counts, statics,
+                                                           return_work=True)
+    tt, p = ids.shape[0], statics.tile_h * statics.tile_w
+    nbytes = (list_read_bytes(rows, ids, ti, counts, statics, work) + 2 * tt * 4 * p * 4
+              + rows.numel() * 4)
     return measure_gradient(
-        label, lambda g: rasterize_dense.backward(gathered, ti, counts, out4, g, statics),
-        lambda g: composite.composite_tiles_backward_reference(gathered, ti, counts, out4, g,
+        label, lambda g: rasterize_dense.backward(rows, ti, counts, out4, g, statics, ids),
+        lambda g: composite.composite_tile_lists_backward_reference(rows, ids, ti, counts, out4,
+                                                                    g, statics),
+        g4, work, nbytes, p, reps, deterministic=False,
+        **_list_meta(rows, ids, counts, statics))
+
+
+def table_form(call):
+    """The table form the list form replaces, on a dense training step's
+    captured B4 call: the payload gather into [tiles, capacity, 16]
+    (binning.gather_payload), B3 and B4 on the table and the gather's
+    transpose, CUDA-event times beside the list form's; and B4 on the table
+    held to its plain version with equal bits over two launches."""
+    import torch
+
+    from casualhdrsplat_torch.ops import binning, composite
+    from casualhdrsplat_torch.ops import rasterize_dense as rd
+
+    rows, ti, counts, out4, g4, statics, ids = call
+    v = statics.num_views
+    payload = rows.reshape(v, -1, binning.PAYLOAD_DIM).detach().requires_grad_(True)
+    tiles = binning.TileLists(ids.reshape(v, -1, ids.shape[1]), counts, None, None)
+    gather_ms = event_ms(lambda: binning.gather_payload(payload, tiles), 5)
+    table = binning.gather_payload(payload, tiles)
+    flat = table.reshape(ids.shape + (binning.PAYLOAD_DIM,))
+    d_table = rd.backward(flat.detach(), ti, counts, out4, g4, statics)
+    transpose_ms = event_ms(lambda: torch.autograd.grad(
+        table, payload, d_table.reshape(table.shape), retain_graph=True), 5)
+    flat = flat.detach()
+    del table, d_table
+    times = dict(
+        gather_ms=gather_ms, transpose_ms=transpose_ms,
+        table_fwd_ms=event_ms(lambda: rd.forward(flat, ti, counts, statics), 10),
+        table_bwd_ms=event_ms(lambda: rd.backward(flat, ti, counts, out4, g4, statics), 10),
+        list_fwd_ms=event_ms(lambda: rd.forward(rows, ti, counts, statics, ids), 10),
+        list_bwd_ms=event_ms(lambda: rd.backward(rows, ti, counts, out4, g4, statics, ids), 10))
+    log("dense table form vs list form, one training step's lists: " + json.dumps(times))
+    with torch.no_grad():
+        _, work = composite.composite_tiles_reference(flat, ti, counts, statics,
+                                                      return_work=True)
+    tt, p = ids.shape[0], statics.tile_h * statics.tile_w
+    measure_gradient(
+        "dense_train_step_table_form",
+        lambda g: rd.backward(flat, ti, counts, out4, g, statics),
+        lambda g: composite.composite_tiles_backward_reference(flat, ti, counts, out4, g,
                                                                statics),
-        g4, work, nbytes, p, reps,
-        **_table_meta(gathered, counts, statics))
+        # each slot its own row of the table; the gradient table written once
+        g4, work, work.slots * USED_ROW_BYTES + 2 * tt * 4 + 2 * tt * 4 * p * 4
+        + flat.numel() * 4, p, 10,
+        tiles=tt, tile=f"{statics.tile_h}x{statics.tile_w}", capacity=ids.shape[1])
 
 
 def profile_window(name, fn, reps=3):
@@ -767,37 +847,6 @@ def dense_serving_phase(device, cfg, scene, params, pose_vms, exposure, rd):
     return launches, res
 
 
-def gather_transpose_times(call):
-    """The dense path's payload gather and its transpose at the training
-    step's table, beside autograd's own transpose of the same gather (which
-    adds every pad slot into the one pad row): CUDA-event times."""
-    import torch
-
-    from casualhdrsplat_torch.ops import binning
-
-    gathered, _, counts, _ = call[:4]
-    tt, cap, _ = gathered.shape
-    # a table with the step's occupancy: tile i holds counts[i] ids, then pads
-    n = 131_072
-    slot = torch.arange(cap, device=gathered.device)[None, :]
-    ids = (torch.arange(tt, device=gathered.device)[:, None] * 7919 + slot * 104729) % n
-    table = torch.where(slot < counts[:, None], ids, n).to(torch.int32)
-    payload = torch.randn((n + 1, 16), device=gathered.device, requires_grad=True)
-    tiles = binning.TileLists(table, counts, None, None)
-    grad = torch.randn_like(gathered)
-    fwd_ms = event_ms(lambda: binning.gather_payload(payload, tiles), 5)
-    out = binning.gather_payload(payload, tiles)
-    bwd_ms = event_ms(lambda: torch.autograd.grad(out, payload, grad, retain_graph=True), 5)
-    del out
-    index = table.long()
-    own = payload[index]
-    own_ms = event_ms(lambda: torch.autograd.grad(own, payload, grad, retain_graph=True), 1,
-                      warmup=0)
-    log(f"gather of {tt * cap} rows ({int(counts.sum())} occupied): {fwd_ms:.3f} ms; its "
-        f"transpose with the pad slots spread over spare rows: {bwd_ms:.3f} ms; autograd's "
-        f"own transpose of payload[index]: {own_ms:.3f} ms")
-
-
 def dense_train_phase(device, dataset, rd):
     """The dense training path at the full width of ladder4-full, density
     control on: returns (launches of B3, launches of B4, the B4 measurement
@@ -882,7 +931,7 @@ def dense_train_phase(device, dataset, rd):
     with torch.no_grad():
         measure_dense_forward("dense_train_step_forward", bwd_call[:3] + bwd_call[5:], 1,
                               reps=10)
-    gather_transpose_times(bwd_call)
+    table_form(bwd_call)
     del bwd_call
     if "--profile" in sys.argv[1:]:
         profile_window("dense_train_step", trainer.run_step)

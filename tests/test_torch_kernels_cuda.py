@@ -1,8 +1,8 @@
 """The CUDA compositor kernels (csrc/rasterize_packed_fwd.cu and
 csrc/rasterize_packed_bwd.cu for the depth-sorted stream,
 csrc/rasterize_dense_fwd.cu and csrc/rasterize_dense_bwd.cu for the dense
-[tiles, capacity] table) held against their plain PyTorch versions on
-the card.  Marked `cuda`: without a card the
+[tiles, capacity] lists, in their table and list forms) held against their
+plain PyTorch versions on the card.  Marked `cuda`: without a card the
 fixture skips every test here (the decision is made inside the fixture,
 so every pytest-xdist worker collects the same tests).
 
@@ -21,6 +21,8 @@ one torch sum, and term2 = out4.g4 - r cancels toward the end of a
 segment, so the two differ by float32 rounding of sums of up to 2048
 terms; the skip vote's one-window slack moves a slot's gradient by at
 most eps times its weight."""
+
+import re
 
 import numpy as np
 import pytest
@@ -288,7 +290,7 @@ def test_heavy_rows_last_in_block_order(cuda, tile_h, tile_w, chunk):
 
 @pytest.mark.parametrize("name", box_cases.CASES)
 def test_kernel_slot_box_is_slot_boxes(cuda, name):
-    """The box the kernels stage (packed_tiles.cuh) equals
+    """The box the kernels stage (tile_boxes.cuh) equals
     rasterize_packed.slot_boxes, computed on the CPU, on every case the CPU
     tests hold slot_boxes to."""
     stream, _, _, statics, origin = box_cases._stream(name, 3)
@@ -457,8 +459,9 @@ def test_dense_tile_indices_with_padded_stride(cuda):
 
 
 def test_dense_backward_is_deterministic_and_overwrites(cuda):
-    """Plain stores in a fixed order: two launches give the same bits, and
-    every row of the gradient table is written, whatever it held."""
+    """The table form adds once to each element of a destination the
+    launcher zeroes: two launches give the same bits, whatever the memory
+    held before."""
     case = _table_case(6, 16, 16, 3, 2, 2, 128, 512, cuda)
     gathered, ti, counts, statics = case
     out4, g4 = _dense_bwd_inputs(case, 7)
@@ -526,3 +529,178 @@ def test_composite_tiles_function_on_card(cuda):
     assert torch.equal(again, out.detach())
     with pytest.raises(ValueError, match="counts outside"):
         rd.forward(base, ti, counts + 40, statics)
+
+
+# -- the dense list form: payload rows through the id table -----------------
+
+
+def _list_case(seed, tile_h, tile_w, ntx, nty, views, chunk, cap, device, n=96):
+    """Random payload rows [V (N + 1), 16] (row N of each view zero) over a
+    views x ntx x nty grid and an id table [tiles, cap] drawn with
+    repeats, so that many tiles, and slots of one tile, add into one row
+    and the backward's atomics collide; every fifth tile empty, every
+    seventh full: (rows, ids, tile_indices, counts, statics)."""
+    rng = np.random.default_rng(seed)
+    tt = views * ntx * nty
+    payload = np.zeros((views, n + 1, binning.PAYLOAD_DIM), np.float32)
+    sig = rng.uniform(0.7, 4.0, size=(views, n))
+    payload[:, :n, 0] = rng.uniform(-4, ntx * tile_w + 4, (views, n))
+    payload[:, :n, 1] = rng.uniform(-4, nty * tile_h + 4, (views, n))
+    payload[:, :n, 2] = payload[:, :n, 4] = 1 / sig**2
+    payload[:, :n, 3] = rng.uniform(-0.2, 0.2, (views, n)) / sig**2
+    payload[:, :n, 5] = rng.uniform(0.05, 0.99, (views, n))
+    payload[:, :n, 6:9] = rng.uniform(0, 2, size=(views, n, 3))
+    payload[:, :n, 9] = 1.0
+    counts = rng.integers(0, cap + 1, size=tt)
+    counts[::5] = 0
+    counts[3::7] = cap
+    ids = rng.integers(0, n, size=(tt, cap))
+    ids[np.arange(cap)[None, :] >= counts[:, None]] = n  # pad slots
+    statics = CompositeStatics(
+        num_views=views, ntx=ntx, nty=nty, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
+        alpha_clip=0.99, alpha_threshold=1 / 255,
+    )
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return (dev(payload.reshape(-1, binning.PAYLOAD_DIM), torch.float32),
+            dev(ids, torch.int32), torch.arange(tt, dtype=torch.int32, device=device),
+            dev(counts, torch.int32), statics)
+
+
+@pytest.mark.parametrize("tile_h,tile_w,chunk,cap", DENSE_CASES)
+def test_dense_list_kernels_match_plain_versions(cuda, tile_h, tile_w, chunk, cap):
+    """composite_tile_lists on the card: one launch of B3 and of B4, each
+    against its plain version; empty tiles composite nothing, the pad rows
+    and the columns that carry no gradient stay exactly zero."""
+    rows, ids, ti, counts, statics = _list_case(0, tile_h, tile_w, 3, 2, 2, chunk, cap, cuda)
+    leaf = rows.clone().requires_grad_(True)
+    before = rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches
+    out = composite.composite_tile_lists(leaf, ids, statics, counts=counts)
+    g4 = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    (d,) = torch.autograd.grad(out, leaf, g4)
+    torch.cuda.synchronize()
+    assert (rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    ref = composite.composite_tile_lists_reference(rows, ids, ti, counts, statics)
+    out = out.detach()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert float(out[counts == 0].abs().max()) == 0.0
+    d_ref = composite.composite_tile_lists_backward_reference(rows, ids, ti, counts, out, g4,
+                                                              statics)
+    assert d.shape == rows.shape and torch.isfinite(d).all()
+    _assert_grad_close(d, d_ref)
+    view_rows = rows.shape[0] // statics.num_views
+    assert float(d[view_rows - 1::view_rows].abs().max()) == 0.0  # each view's pad row
+    assert float(d[:, 9:].abs().max()) == 0.0
+
+
+def test_dense_list_form_equals_table_form(cuda):
+    """The one kernel per direction on the two forms of the same lists:
+    equal bits forward; backward, the table form's gradient table scattered
+    into the rows agrees with the list form's atomics, and the table form
+    gives equal bits twice."""
+    rows, ids, ti, counts, statics = _list_case(2, 16, 16, 3, 2, 2, 128, 1024, cuda)
+    table, index, in_list = composite.gather_lists(rows, ids, ti, counts, statics)
+    out = rd.forward(rows, ti, counts, statics, ids)
+    assert torch.equal(out, rd.forward(table, ti, counts, statics))
+    g4 = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    d_table = rd.backward(table, ti, counts, out, g4, statics)
+    assert torch.equal(d_table, rd.backward(table, ti, counts, out, g4, statics))
+    scattered = torch.zeros_like(rows).index_add_(0, index[in_list], d_table[in_list])
+    _assert_grad_close(rd.backward(rows, ti, counts, out, g4, statics, ids), scattered)
+
+
+def test_dense_list_out_of_range_reads_nothing(cuda):
+    """Ids outside [0, N + 1) (the int32 extremes among them) and tile
+    indices whose view lies outside [0, V) read and write nothing: the
+    kernels give what the same lists give with those slots naming the zero
+    pad row and those tiles empty, and agree with their plain versions."""
+    rows, ids, ti, counts, statics = _list_case(5, 16, 16, 3, 2, 2, 128, 1024, cuda)
+    tt, view_rows = ids.shape[0], rows.shape[0] // statics.num_views
+    bad_ids, bad_ti = ids.clone(), ti.clone()
+    bad_ids[3, :4] = torch.tensor([view_rows, -1, 2**31 - 1, -2**31], dtype=torch.int32)
+    bad_ids[8, 1] = 3 * view_rows
+    bad_ti[4], bad_ti[6] = tt + 3, -1
+    assert int(counts[3]) == 1024 and int(counts[8]) > 1 and int(counts[4] * counts[6]) > 0
+    same_ids = torch.where((bad_ids >= 0) & (bad_ids < view_rows), bad_ids, view_rows - 1)
+    same_counts = counts.clone()
+    same_counts[4] = same_counts[6] = 0
+    out = rd.forward(rows, bad_ti, counts, statics, bad_ids)
+    g4 = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    d = rd.backward(rows, bad_ti, counts, out, g4, statics, bad_ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, rd.forward(rows, ti, same_counts, statics, same_ids))
+    assert float(out[4].abs().max()) == 0.0 == float(out[6].abs().max())
+    _assert_grad_close(d, rd.backward(rows, ti, same_counts, out, g4, statics, same_ids))
+    ref = composite.composite_tile_lists_reference(rows, bad_ids, bad_ti, counts, statics)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    _assert_grad_close(d, composite.composite_tile_lists_backward_reference(
+        rows, bad_ids, bad_ti, counts, out, g4, statics))
+    assert float(d[view_rows - 1::view_rows].abs().max()) == 0.0
+
+def _box_lists(name, seed, device):
+    """A box case's stream as the list form: tile i reads its row's segment
+    of the stream through ids; slots past its count read the stream's last
+    row, a zero row."""
+    stream, lo, hi, statics, _ = box_cases._stream(name, seed)
+    seg = hi - lo
+    cap = -(-int(seg.max()) // statics.chunk) * statics.chunk
+    k = torch.arange(cap)[None, :]
+    ids = torch.where(k < seg[:, None], lo[:, None] + k, stream.shape[0] - 1).to(torch.int32)
+    tt = lo.shape[0]
+    return (stream.to(device), ids.to(device), torch.arange(tt, dtype=torch.int32, device=device),
+            seg.to(device), statics)
+
+
+@pytest.mark.parametrize("name", box_cases.CASES)
+def test_dense_kernels_on_the_box_cases(cuda, name):
+    """B3 and B4 (list form) against their plain versions on the CPU tests'
+    box cases, with the threshold-tie exemption of
+    test_kernels_on_the_box_cases."""
+    rows, ids, ti, counts, statics = _box_lists(name, 4, cuda)
+    out4 = rd.forward(rows, ti, counts, statics, ids)
+    ref, work = composite.composite_tile_lists_reference(rows, ids, ti, counts, statics,
+                                                         return_work=True)
+    diff = (out4 - ref).abs()
+    off = diff > 1e-4 + 1e-4 * ref.abs()
+    assert not bool((off & ~work.tie_pixels[:, None, :]).any())
+    assert float(diff.max()) <= 2.0 * statics.alpha_threshold * max(
+        1.0, float(rows[:, binning.COL_R:binning.COL_ONE + 1].max()))
+    g4 = torch.randn(out4.shape, generator=torch.Generator().manual_seed(17)).to(cuda)
+    g4 = g4 * ~work.tie_pixels[:, None, :]
+    d = rd.backward(rows, ti, counts, out4, g4, statics, ids)
+    d_ref = composite.composite_tile_lists_backward_reference(rows, ids, ti, counts, out4, g4,
+                                                              statics)
+    if name == "clip_below_threshold":  # no slot reaches any pixel
+        assert float(d.abs().max()) == 0.0 and float(d_ref.abs().max()) == 0.0
+    else:
+        _assert_grad_close(d, d_ref)
+
+
+def _ptxas_report(log):
+    """{kernel's mangled name: [ptxas's stack and spill line, its register
+    line]} from the build log of nvcc -Xptxas -v."""
+    report, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+            report[name] = []
+        elif name and ("spill" in line or "registers" in line):
+            report[name].append(line.strip())
+    return report
+
+
+def test_dense_kernels_build_without_spills(cuda):
+    """ptxas's registers and spills of every variant of B3 and B4, printed
+    for the record; the one-pixel-a-thread variants, which the dense path's
+    16x16 tiles run, spill nothing."""
+    for kernel in (rd.FWD_KERNEL, rd.BWD_KERNEL):
+        report = _ptxas_report(kernel.build_log())
+        assert report
+        for name, lines in report.items():
+            print(kernel.source_name, name, *lines, sep="\n  ")
+            if "ILi1E" in name:  # template argument PPT = 1
+                assert any(" 0 bytes spill stores" in line for line in lines), lines

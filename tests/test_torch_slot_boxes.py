@@ -1,5 +1,5 @@
-"""The slot box of the packed compositor kernels (`rasterize_packed.
-slot_boxes`, the formula of `slot_box` in csrc/rasterize_packed_{fwd,bwd}.cu)
+"""The slot box of the compositor kernels (`rasterize_packed.
+slot_boxes`, the formula of `slot_box` in csrc/tile_boxes.cuh)
 held against the plain version's own evaluation of alpha, on random and
 adversarial streams: near-singular and non-positive-definite conics,
 opacities below, at and above alpha_threshold and at the clip, centres off
