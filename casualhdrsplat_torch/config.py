@@ -213,6 +213,35 @@ def from_dict(d: dict) -> TrainConfig:
     return build(TrainConfig, d)
 
 
+def _apply_override(cfg, dotted: str, value: str):
+    obj = cfg
+    parts = dotted.split(".")
+    for p in parts[:-1]:
+        obj = getattr(obj, p)
+    leaf = parts[-1]
+    old = getattr(obj, leaf)
+    if isinstance(old, bool):
+        new = value.lower() in ("1", "true", "yes", "on")
+    elif isinstance(old, int):
+        new = int(value)
+    elif isinstance(old, float):
+        new = float(value)
+    else:
+        new = value
+    setattr(obj, leaf, new)
+
+
+def with_overrides(cfg: TrainConfig, overrides) -> TrainConfig:
+    """Apply `a.b.c=value` command-line overrides in place; returns cfg.
+    An unknown key raises AttributeError naming the field."""
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        k, v = ov.split("=", 1)
+        _apply_override(cfg, k, v)
+    return cfg
+
+
 # --- the reference's config-ladder presets ----------------------------------
 
 

@@ -15,32 +15,39 @@ After the step, on the reference's schedule: a densify round in the
 densify window, a prune-only round outside it while the screen-size prune
 is armed, and the opacity reset (train/densify.py).
 
-Not ported yet (ROADMAP.md, queue A): checkpoints (`save` and `load`
-raise; `train` says so once and saves nothing) and LPIPS in `evaluate`.
+`save` writes the reference's checkpoint payload plus what a continuation
+needs to match an uninterrupted run bit for bit, which the reference
+redraws from its seed instead: the split-noise generator, the frame
+sampler and the oversized-splat watchdog.  `lock` is held across a step,
+so that a reader on another thread (the viewer) never sees parameters
+that Adam is halfway through writing in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import threading
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from casualhdrsplat_torch import config as config_mod
 from casualhdrsplat_torch.config import TrainConfig
 from casualhdrsplat_torch.data.dataset import Dataset, load_dataset
 from casualhdrsplat_torch.models import crf as crf_mod
 from casualhdrsplat_torch.models import gaussians as gauss_mod
 from casualhdrsplat_torch.models import image_formation as imf
 from casualhdrsplat_torch.models import losses
+from casualhdrsplat_torch.models import perceptual
 from casualhdrsplat_torch.ops.binning import tile_grid
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
+from casualhdrsplat_torch.train import checkpoint as ckpt_mod
 from casualhdrsplat_torch.train import densify as densify_mod
 from casualhdrsplat_torch.train import metrics as metrics_mod
 from casualhdrsplat_torch.train import optim as optim_mod
-
-_NOT_PORTED = "not ported yet: ROADMAP.md, queue A, 'Checkpoints'"
 
 
 class Trainer:
@@ -83,6 +90,7 @@ class Trainer:
         self._rng = np.random.default_rng(cfg.seed + 2)
         self.logger: Optional[metrics_mod.MetricsLogger] = None
         self._image_diag = float(np.hypot(self.dataset.width, self.dataset.height))
+        self.lock = threading.Lock()
 
     def _guard_shared_binning(self) -> None:
         """Startup self-guard: shared binning's Chebyshev radius inflation
@@ -288,6 +296,10 @@ class Trainer:
         return report
 
     def run_step(self) -> Dict[str, float]:
+        with self.lock:
+            return self._run_step()
+
+    def _run_step(self) -> Dict[str, float]:
         frame = int(self._rng.choice(self.dataset.train_indices))
         sigma = self._c2f_sigma()
         if self.cfg.loss.coarse_to_fine_steps > 0:
@@ -363,7 +375,6 @@ class Trainer:
         cfg = self.cfg
         out_dir = os.path.join(cfg.out_dir, cfg.name)
         self.logger = self.logger or metrics_mod.MetricsLogger(out_dir)
-        print(f"NOTE: checkpoints are {_NOT_PORTED}; this run saves none.", flush=True)
         timer = metrics_mod.Timer()
         last: Dict[str, float] = {}
         # Persistent stream-budget overflow corrupts gradients (the fit
@@ -401,6 +412,9 @@ class Trainer:
                 self.logger.log(self.step, mpix_s=mpix, **last)
             if cfg.eval_every and self.step % cfg.eval_every == 0:
                 self.logger.log(self.step, **self.evaluate())
+            if cfg.checkpoint_every and self.step % cfg.checkpoint_every == 0:
+                self.save(out_dir)
+        self.save(out_dir)
         return last
 
     # -- eval / io -----------------------------------------------------------
@@ -418,8 +432,9 @@ class Trainer:
     def evaluate(self, indices=None) -> Dict[str, float]:
         """Score the model on held-out frames.
 
-        Always: PSNR/SSIM/MS-SSIM of the synthesized blurred frame B_i
-        against the captured frame.  When the dataset carries ground-truth
+        Always: PSNR/SSIM/MS-SSIM (and LPIPS when models/perceptual.py
+        can run it) of the synthesized blurred frame B_i against the
+        captured frame.  When the dataset carries ground-truth
         sharp frames (synthetic fixtures), additionally the deblurred
         mid-exposure render against sharp GT (`eval_sharp_psnr`) beside the
         captured blurry input's own PSNR against sharp GT
@@ -429,13 +444,16 @@ class Trainer:
             idx = self.dataset.train_indices[:2]
         deg = self.active_sh_degree()
         cfg = self.cfg.model
-        blurred, sharp, sharp_in = [], [], []
+        blurred, sharp, sharp_in, lpips_vals = [], [], [], []
         sharp_gt = self.dataset.sharp_images
         for i in idx:
             fid = int(i)
             out = imf.render_frame(self.params, self.scene, fid, cfg, sh_degree=deg)
             target = self.images[fid]
             blurred.append(self._metric_vector(out.blurred_ldr, target))
+            if perceptual.available():
+                lpips_vals.append(perceptual.lpips(out.blurred_ldr.cpu().numpy(),
+                                                   target.cpu().numpy()))
             if sharp_gt is not None:
                 gt = torch.as_tensor(sharp_gt[fid], device=self.device)
                 deb, _, _ = imf.render_deblurred(self.params, self.scene, fid, cfg,
@@ -468,6 +486,8 @@ class Trainer:
                 novel.append(self._metric_vector(ldr, gt))
             metrics["eval_novel_psnr"] = float(np.mean([m[0] for m in novel]))
             metrics["eval_novel_ssim"] = float(np.mean([m[1] for m in novel]))
+        if lpips_vals:
+            metrics["eval_lpips"] = float(np.mean(lpips_vals))
         if sharp:
             spsnr, sssim, sms = np.mean(sharp, axis=0)
             metrics["eval_sharp_psnr"] = float(spsnr)
@@ -477,7 +497,48 @@ class Trainer:
         return metrics
 
     def save(self, out_dir: str) -> str:
-        raise NotImplementedError(f"Trainer.save: checkpoints are {_NOT_PORTED}")
+        """Write the checkpoint `out_dir/step_<step>` and, beside it, the
+        resolved config as `config.json` (rewritten on every save, through
+        a temporary file, so that a stale or truncated one never stays).
+        Returns the checkpoint's path."""
+        out_abs = os.path.abspath(out_dir)
+        path = os.path.join(out_abs, f"step_{self.step}")
+        ckpt_mod.save(path, {
+            "params": self.params,
+            "opt_state": self.opt_state,
+            "adc": self.adc._asdict(),
+            "step": self.step,
+            # beyond the reference's payload: the state a continuation
+            # needs to draw what an uninterrupted run would have drawn
+            "resume": {
+                "adc_generator": self._adc_generator.get_state(),
+                "rng": self._rng.bit_generator.state,
+                "clip_floor": self._clip_floor,
+                "clip_warn_at": self._clip_warn_at,
+                "screen_prune_armed": self._screen_prune_armed,
+            },
+        })
+        # The parameter and optimizer trees depend on the config (CRF kind,
+        # capacity, ...): render, eval and export rebuild it from this file.
+        cfg_path = os.path.join(out_abs, "config.json")
+        tmp = cfg_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(config_mod.to_dict(self.cfg), f, indent=1)
+        os.replace(tmp, cfg_path)
+        return path
 
     def load(self, path: str) -> None:
-        raise NotImplementedError(f"Trainer.load: checkpoints are {_NOT_PORTED}")
+        """Restore a checkpoint written by `save` onto this trainer's
+        device, whichever device wrote it."""
+        payload = ckpt_mod.restore(path, map_location=self.device)
+        with self.lock:
+            self.params = payload["params"]
+            self.opt_state = payload["opt_state"]
+            self.adc = densify_mod.AdcState(**payload["adc"])
+            self.step = int(payload["step"])
+            resume = payload["resume"]
+            self._adc_generator.set_state(resume["adc_generator"].cpu())
+            self._rng.bit_generator.state = resume["rng"]
+            self._clip_floor = resume["clip_floor"]
+            self._clip_warn_at = resume["clip_warn_at"]
+            self._screen_prune_armed = resume["screen_prune_armed"]

@@ -37,7 +37,18 @@
    the round cloned or split, `alive` rose by what it granted less what it
    pruned, the moments of the new slots are zero, the reset clamped every
    opacity.
-7. Holds every kernel against its plain PyTorch version on the inputs the
+7. The command line on the same video written as a COLMAP capture (text
+   model, 8-bit PNG frames), in this process: `train --preset ladder4` for
+   6 steps with checkpoints at 3 and 6 and an eval at 6; steps 4-6 again
+   from step_3 in a fresh trainer, held to the uninterrupted run
+   (RESUME_*); `train --resume` to step 8; `eval`; `render` in all six
+   modes; `export`, read back equal to the checkpoint.  Then the viewer
+   (10 /render.jpg requests) and both pose aligners (48 steps each, a
+   known offset injected) on the trained scene.  B1 and B2 launch counts
+   are checked for every command, and the two kernels are held against
+   their plain versions on one aligner step's inputs (render_pose's
+   backward, the per-view branch).
+8. Holds every kernel against its plain PyTorch version on the inputs the
    paths gave it (pixels at a threshold tie exempt, forward and backward;
    each backward run twice: equal bits, but for the dense list form, whose
    atomics add in an order that changes from run to run: its largest
@@ -46,16 +57,16 @@
    slices on the card against the same on the CPU at a small size (the
    rendered frame; the gradients of one packed training step; a dense
    training step, a densify round and the step after it).
-8. Times each kernel with CUDA events at the paths' shapes, the packed ones
+9. Times each kernel with CUDA events at the paths' shapes, the packed ones
    also at the same frame on 16x16 tiles and at bench.py::build's shapes
    (16x16 tiles, 4 views, 100k Gaussians), beside its plain version and its
    bound; and, on a dense training step's lists, the table form the dense
    kernels replace: the payload gather, the kernels on the table and the
    gather's transpose.
-9. With --profile, prints the device time of a render_frame request, a
+10. With --profile, prints the device time of a render_frame request, a
    render_pose request and a training step by kernel (torch.profiler), on
    both paths.
-10. Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
+11. Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
    {...}}`.
 
 Any failed phase exits non-zero without the last line.  There is no CPU
@@ -67,8 +78,10 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from types import SimpleNamespace
@@ -1016,6 +1029,351 @@ def small_dense_train_check(device):
         f"{after[0]['loss']:.6f}")
 
 
+def write_colmap_capture(dataset, root):
+    """`dataset` as a COLMAP capture in text form under `root`: one PINHOLE
+    camera, each frame's world-to-camera pose as (qvec, tvec), the cloud's
+    points with 8-bit colours in sparse/0/, and the frames as 8-bit PNGs
+    in images/frame_000i.png."""
+    import torch
+    from PIL import Image
+
+    from casualhdrsplat_torch.geometry import lie
+
+    model = os.path.join(root, "sparse", "0")
+    os.makedirs(model)
+    os.makedirs(os.path.join(root, "images"))
+    with open(os.path.join(model, "cameras.txt"), "w") as f:
+        f.write(f"1 PINHOLE {dataset.width} {dataset.height} {dataset.fx!r} {dataset.fy!r} "
+                f"{dataset.cx!r} {dataset.cy!r}\n")
+    vms = dataset.viewmats.astype(np.float64)
+    qvecs = lie.rotmat_to_quat(torch.as_tensor(vms[:, :3, :3])).numpy()
+    with open(os.path.join(model, "images.txt"), "w") as f:
+        for i, (q, t) in enumerate(zip(qvecs, vms[:, :3, 3])):
+            f.write(f"{i + 1} " + " ".join(repr(float(v)) for v in (*q, *t))
+                    + f" 1 frame_{i:04d}.png\n0.0 0.0 -1\n")
+    n = len(dataset.points_xyz)
+    rgb = np.round(np.clip(dataset.points_rgb, 0.0, 1.0) * 255.0)
+    np.savetxt(os.path.join(model, "points3D.txt"),
+               np.column_stack([np.arange(1, n + 1), dataset.points_xyz, rgb, np.zeros(n)]),
+               fmt=["%d", "%.9g", "%.9g", "%.9g", "%d", "%d", "%d", "%.1f"])
+    for i, img in enumerate(dataset.images):
+        Image.fromarray(np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)).save(
+            os.path.join(root, "images", f"frame_{i:04d}.png"))
+
+
+class CallTimer:
+    """Times every call of `module.<name>` (host clock, synchronised on
+    both sides) while installed; `samples` holds the seconds."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.samples = module, name, []
+        self.original = getattr(module, name)
+
+    def __enter__(self):
+        def timed_call(*args, **kw):
+            out, dt = timed(lambda: self.original(*args, **kw))
+            self.samples.append(dt)
+            return out
+
+        setattr(self.module, self.name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.original)
+
+
+def cli_phase(device, dataset, rp):
+    """The command line at full width on a COLMAP capture of the training
+    video, then the viewer and both pose aligners on the trained scene:
+    returns (launches of B1, launches of B2, the B2 measurement on an
+    aligner step)."""
+    from casualhdrsplat_torch import cli
+    from casualhdrsplat_torch import config
+    from casualhdrsplat_torch.data import dataset as dataset_mod
+    from casualhdrsplat_torch.models import image_formation as imf
+    from casualhdrsplat_torch.train import checkpoint as ckpt
+    from casualhdrsplat_torch.train import trainer as trainer_mod
+
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL)
+    total = np.zeros(2, np.int64)
+
+    def count(fn):
+        """(fn(), the launches of B1 and B2 during it), which also add to
+        the phase's total."""
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        n = tuple(k.launches for k in kernels)
+        total[:] += n
+        return out, n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        capture = os.path.join(tmp, "capture")
+        write_colmap_capture(dataset, capture)
+        loaded, t_load = timed(lambda: dataset_mod.load_dataset(
+            config.DataConfig(source="colmap", path=capture), device=device))
+        log(f"COLMAP capture: {loaded.images.shape[0]} frames of {loaded.width}x{loaded.height}, "
+            f"{len(loaded.points_xyz)} points; load_dataset {t_load:.2f} s")
+        if (loaded.images.shape != dataset.images.shape
+                or len(loaded.points_xyz) != len(dataset.points_xyz)
+                or float(np.abs(loaded.images - dataset.images).max()) > 0.5 / 255 + 1e-6
+                or float(np.abs(loaded.viewmats - dataset.viewmats).max()) > 1e-5):
+            raise AssertionError("the capture does not read back as the video it was written from")
+
+        out = os.path.join(tmp, "out")
+        overrides = ["data.source=colmap", f"data.path={capture}", "densify.enabled=false",
+                     "checkpoint_every=3", "log_every=3", "eval_every=6", f"out_dir={out}"]
+        saves = CallTimer(trainer_mod.Trainer, "save")
+        with saves:
+            last, (b1, b2) = count(lambda: cli.main(
+                ["train", "--preset", "ladder4", "--device", "cuda", *overrides,
+                 "optim.max_steps=6"]))
+        root = os.path.join(out, config.PRESETS["ladder4"]().name)
+        step3, step6 = (os.path.join(root, f"step_{n}") for n in (3, 6))
+        size = sum(os.path.getsize(os.path.join(step6, f)) for f in os.listdir(step6))
+        log(f"cli train: 6 steps, final {json.dumps(last)}; launches B1 {b1} (6 steps + 1 eval "
+            f"render), B2 {b2}; checkpoint saves {[round(x, 3) for x in saves.samples]} s, "
+            f"{size / 2**20:.1f} MiB each")
+        if b1 != 7 or b2 != 6:
+            raise AssertionError("cli train: B1 once a step and once per eval render, B2 once a step")
+        if sorted(os.listdir(root)) != ["config.json", "metrics.jsonl", "step_3", "step_6"]:
+            raise AssertionError(f"cli train wrote {sorted(os.listdir(root))}")
+
+        # steps 4-6 again from step_3 in a trainer of this process, with the
+        # config of the run (the resumed run below rewrites config.json)
+        with open(os.path.join(root, "config.json")) as f:
+            cfg = config.from_dict(json.load(f))
+        trainer = trainer_mod.Trainer(cfg, device=device)
+        _, t_restore = timed(lambda: trainer.load(step3))
+        for _ in range(3):
+            again = trainer.run_step()
+        with open(os.path.join(root, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        ref_scalars = next(r for r in logged if r["step"] == 6 and "loss" in r)
+        ref = ckpt.restore(step6, map_location=device)["params"]
+        resume_check(trainer, ref, again, ref_scalars, t_restore)
+        del ref
+
+        _, (b1, b2) = count(lambda: cli.main(
+            ["train", "--resume", "--preset", "ladder4", "--device", "cuda", *overrides,
+             "optim.max_steps=8"]))
+        if ckpt.restore(ckpt.latest_step_dir(root), map_location="cpu")["step"] != 8 or b2 != 2:
+            raise AssertionError("cli train --resume did not continue from step 6 to step 8")
+        log(f"cli train --resume: steps 7-8 from step_6, launches B1 {b1}, B2 {b2}")
+
+        evals, (b1, _) = count(lambda: cli.main(
+            ["eval", "--device", "cuda", "--checkpoint", step6]))
+        log(f"cli eval: {json.dumps(evals)}; launches B1 {b1}")
+        if (sorted(evals) != ["eval_ms_ssim", "eval_psnr", "eval_ssim"]
+                or not all(np.isfinite(v) for v in evals.values()) or b1 != 1):
+            raise AssertionError("cli eval: three finite metrics from one render expected")
+
+        renders = os.path.join(tmp, "renders")
+        modes = {"deblur": 1, "hdr": 1, "exposure-sweep": 7, "blurred": 1, "depth": 1,
+                 "novel": 3}
+        for mode, calls in modes.items():
+            extra = (["--path-n", "3", "--gif", os.path.join(renders, mode, "path.gif")]
+                     if mode == "novel" else [])
+            with CallTimer(imf, "render_pose") as poses, CallTimer(imf, "render_frame") as frames:
+                _, (b1, _) = count(lambda: cli.main(
+                    ["render", "--device", "cuda", "--checkpoint", step6, "--mode", mode,
+                     "--frames", "1", "--out", os.path.join(renders, mode), *extra]))
+            samples = poses.samples + frames.samples
+            files = check_renders(os.path.join(renders, mode), mode)
+            log(f"cli render --mode {mode}: {len(samples)} render calls, median "
+                f"{np.median(samples) * 1e3:.2f} ms, launches B1 {b1}; wrote {files}")
+            if b1 != calls or len(samples) != calls:
+                raise AssertionError(f"cli render --mode {mode}: B1 once per render call")
+
+        ply = os.path.join(tmp, "scene.ply")
+        cli.main(["export", "--device", "cuda", "--checkpoint", step6, "--out", ply])
+        g = ckpt.restore(step6, map_location="cpu")["params"]["gaussians"]
+        alive = g["alive"].numpy()
+        back = ckpt.import_ply(ply)
+        quats = g["quats"].numpy()[alive]
+        quats = quats / np.maximum(np.linalg.norm(quats, axis=-1, keepdims=True), 1e-8)
+        for k, want in [(k, g[k].numpy()[alive]) for k in (
+                "means", "sh_dc", "sh_rest", "opacity_logit", "log_scales")] + [("quats", quats)]:
+            if not np.array_equal(back[k], want):
+                raise AssertionError(f"export: {k} differs from the checkpoint's alive rows")
+        log(f"cli export: {int(alive.sum())} Gaussians, {os.path.getsize(ply) / 2**20:.1f} MiB, "
+            f"equal to the checkpoint's alive rows")
+
+    viewer_phase(trainer, count)
+    res = aligner_phase(trainer, count, rp)
+    log(f"command-line phase launches: B1 {total[0]}, B2 {total[1]}")
+    return int(total[0]), int(total[1]), res
+
+
+# Resume on the card: the continuation from step_3 and the uninterrupted
+# run differ only by the float atomics of the packed path's stream-gather
+# transpose (autograd's index_add), which add a Gaussian's gradient in an
+# order that changes from run to run.  Adam's first steps are about lr x
+# sign(gradient): where a gradient cancels to below that rounding an
+# element steps the other way, and the runs part by up to 2 lr a step from
+# there on.  Held to: the step-6 loss and PSNR within RESUME_RTOL; in every
+# parameter group at most RESUME_OUTLIER_SHARE of the elements off by more
+# than 0.1 lr, and none by more than RESUME_MAX_LR lr (three such steps),
+# each on top of two float32 roundings of the group's largest value.
+RESUME_RTOL, RESUME_OUTLIER_SHARE, RESUME_MAX_LR = 1e-4, 1e-2, 6.0
+
+
+def resume_check(trainer, ref, again, ref_scalars, t_restore):
+    import torch
+
+    from casualhdrsplat_torch.train import optim
+
+    report, failed = {}, []
+    for path, label, leaf in optim.labelled_leaves(trainer.params):
+        want = optim.tree_get(ref, path)
+        if label == "frozen":
+            if not torch.equal(leaf, want):
+                failed.append(path)
+            continue
+        # the largest learning rate of the group over steps 4-6
+        lr = max(trainer.opt.learning_rates(c)[label] for c in range(3, 6))
+        diff = (leaf - want).abs()
+        # two float32 roundings of the leaf's largest value on top
+        floor = 2.4e-7 * float(want.abs().max())
+        shares = [int((diff > k * lr + floor).sum()) / diff.numel() for k in (1e-3, 0.1, 1.0)]
+        report["/".join(path)] = dict(max_abs=float(diff.max()), lr=lr, shares=shares)
+        if shares[1] > RESUME_OUTLIER_SHARE or float(diff.max()) > RESUME_MAX_LR * lr + floor:
+            failed.append(path)
+    errs = {k: abs(again[k] - ref_scalars[k]) / abs(ref_scalars[k]) for k in ("loss", "psnr")}
+    log(f"resume from step_3 (load {t_restore:.3f} s) to step 6 vs the uninterrupted run: "
+        f"loss {again['loss']!r} vs {ref_scalars['loss']!r}, psnr {again['psnr']!r} vs "
+        f"{ref_scalars['psnr']!r}, relative {json.dumps(errs)}; per group: max abs diff, the "
+        f"learning rate, shares of elements off by more than (1e-3, 0.1, 1) lr + two "
+        f"roundings: {json.dumps(report)}")
+    if failed or max(errs.values()) > RESUME_RTOL:
+        raise AssertionError(f"resume: the step-6 state differs ({failed}, {errs})")
+
+
+def check_renders(out, mode):
+    """The files a render mode wrote, each checked: 800x800, finite, in
+    range."""
+    from PIL import Image
+
+    names = sorted(os.listdir(out))
+    for name in names:
+        path = os.path.join(out, name)
+        if name.endswith(".png"):
+            img = np.asarray(Image.open(path))
+            if img.shape != (SIZE, SIZE, 3) or img.max() == 0:
+                raise AssertionError(f"render {mode}: {name} is {img.shape}, max {img.max()}")
+        elif name.endswith(".npy"):
+            arr = np.load(path)
+            if arr.shape[:2] != (SIZE, SIZE) or not np.isfinite(arr).all() or arr.min() < 0:
+                raise AssertionError(f"render {mode}: {name} is not finite and >= 0")
+        elif name.endswith(".gif"):
+            if Image.open(path).n_frames != 3:
+                raise AssertionError(f"render {mode}: {name} does not hold 3 frames")
+    if not names:
+        raise AssertionError(f"render {mode}: no files")
+    return names
+
+
+def viewer_phase(trainer, count):
+    """10 /render.jpg requests at 800x800 against the trained scene."""
+    import urllib.request
+
+    from casualhdrsplat_torch.viewer.server import ViewerServer, make_orbit_render_fn
+
+    server = ViewerServer(make_orbit_render_fn(trainer), host="127.0.0.1", port=0).start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        if b"viewer" not in urllib.request.urlopen(base + "/", timeout=60).read():
+            raise AssertionError("viewer: no page at /")
+        urllib.request.urlopen(base + "/render.jpg", timeout=120).read()  # warm-up
+
+        def requests():
+            lat = []
+            for i in range(10):
+                t0 = time.perf_counter()
+                jpg = urllib.request.urlopen(
+                    f"{base}/render.jpg?angle={0.02 * (i - 5)}&log_exposure={0.1 * (i - 5)}"
+                    f"&mode={'hdr' if i % 5 == 4 else 'ldr'}", timeout=120).read()
+                lat.append(time.perf_counter() - t0)
+                if jpg[:2] != b"\xff\xd8":
+                    raise AssertionError("viewer: a reply is not a JPEG")
+            return lat
+
+        lat, (b1, _) = count(requests)
+    finally:
+        server.stop()
+    log(f"viewer: 10 /render.jpg requests at {SIZE}x{SIZE}, median "
+        f"{np.median(lat) * 1e3:.2f} ms (min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}), "
+        f"launches B1 {b1}")
+    if b1 != 10:
+        raise AssertionError("viewer: B1 once per request")
+
+
+ALIGN_STEPS = 48
+
+
+def aligner_phase(trainer, count, rp):
+    """make_aligner on frame 1's deblurred view with a known 0.5 degree /
+    1 cm offset, make_window_realigner on frame 1 and on the last frame
+    (whose window repeats the last knot) against their clean renders with
+    that offset put into the window's knots, 48 steps each; then B1 and B2
+    against their plain versions on one aligner step's inputs (the
+    per-view packed branch's backward).  Returns the B2 measurement."""
+    import torch
+
+    from casualhdrsplat_torch.geometry import lie
+    from casualhdrsplat_torch.models import image_formation as imf
+    from casualhdrsplat_torch.train import pose_align
+
+    m, p, scene = trainer.cfg.model, trainer.params, trainer.scene
+    dev = scene.timestamps.device
+    axis = torch.tensor([1.0, -1.0, 1.0], device=dev) / np.sqrt(3.0)
+    xi = torch.cat([axis * np.radians(0.5), axis.flip(0) * 0.01])
+    with torch.no_grad():
+        dt = imf.exposure_of(p, 1)
+        vm = imf.poses_at(p, scene, (scene.timestamps[1] + 0.5 * dt).reshape(1), m)[0]
+        target, _, _ = imf.render_pose(p, scene, vm, m, exposure=dt)
+        vm_off = lie.mat_mul(lie.se3_exp(xi), vm)
+    align = pose_align.make_aligner(m, steps=ALIGN_STEPS)
+    ((_, _, curve), (b1, b2)), t = timed(
+        lambda: count(lambda: align(p, scene, vm_off, dt, target)))
+    log_alignment("make_aligner, frame 1", curve, t, b1, b2, ALIGN_STEPS + 1)
+    realign = pose_align.make_window_realigner(m, steps=ALIGN_STEPS)
+    for frame in (1, trainer.dataset.num_frames - 1):
+        with torch.no_grad():
+            clean = imf.render_frame(p, scene, frame, m).blurred_ldr
+            t_i = float(scene.timestamps[frame])
+            j0 = int(np.floor((t_i - float(scene.knot_t0)) / float(scene.knot_dt))) - 1
+            idx = torch.clamp(torch.arange(j0, j0 + 7, device=dev), 0,
+                              p["knot_deltas"].shape[0] - 1)
+            knots = torch.unique(idx)
+            kd = p["knot_deltas"]
+            broken = dict(p, knot_deltas=kd.index_put(
+                (knots,), lie.se3_log(lie.mat_mul(lie.se3_exp(xi), lie.se3_exp(kd[knots])))))
+        ((_, _, curve), (b1, b2)), t = timed(
+            lambda: count(lambda: realign(broken, scene, frame, clean)))
+        log_alignment(f"make_window_realigner, frame {frame} (knots {idx.tolist()})", curve, t,
+                      b1, b2, ALIGN_STEPS)
+    # kernels B1 and B2 on the inputs one aligner step gives them
+    bwd_call, = capture_calls(rp, "_backward_cuda", lambda: pose_align.make_aligner(
+        m, steps=1)(p, scene, vm_off, dt, target))
+    res = measure_backward("aligner_step", bwd_call, reps=20)
+    with torch.no_grad():
+        measure_compositor("aligner_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=20)
+    return res
+
+
+def log_alignment(name, curve, seconds, b1, b2, b1_expected):
+    """Log an aligner run; it must lower its loss and launch B1 and B2 once
+    a step (B1 once more for make_aligner's final render)."""
+    c = curve.tolist()
+    log(f"{name}: {ALIGN_STEPS} steps in {seconds:.3f} s = {seconds / ALIGN_STEPS * 1e3:.2f} "
+        f"ms a step; loss {c[0]:.6g} -> {c[-1]:.6g}; launches B1 {b1}, B2 {b2}")
+    if not c[-1] < c[0]:
+        raise AssertionError(f"{name}: the loss did not fall")
+    if b1 != b1_expected or b2 != ALIGN_STEPS:
+        raise AssertionError(f"{name}: B1 and B2 once a step")
+
+
 def bench_shapes(device):
     """Both kernels at bench.py::build's workload: 100k Gaussians, 4 views,
     16x16 tiles, chunk 128."""
@@ -1186,6 +1544,7 @@ def main() -> int:
     train_fwd_launches, train_bwd_launches, res_bwd = train_phase(device, dataset, rp)
     dense_fwd_launches, dense_bwd_launches, res_dense_bwd = dense_train_phase(
         device, dataset, rd)
+    cli_fwd_launches, cli_bwd_launches, _ = cli_phase(device, dataset, rp)
     del dataset
     bench_shapes(device)
     with torch.inference_mode():
@@ -1196,9 +1555,9 @@ def main() -> int:
     kernels_line = [
         # each forward kernel is launched by its path's requests and steps
         kernel_entry("rasterize_packed_fwd", "rasterize_packed.py:99",
-                     serve_launches + train_fwd_launches, res_frame),
+                     serve_launches + train_fwd_launches + cli_fwd_launches, res_frame),
         kernel_entry("rasterize_packed_bwd", "rasterize_packed.py:201",
-                     train_bwd_launches, res_bwd),
+                     train_bwd_launches + cli_bwd_launches, res_bwd),
         kernel_entry("rasterize_dense_fwd", "rasterize_pallas.py:104",
                      dense_serve_launches + dense_fwd_launches, res_dense_fwd),
         kernel_entry("rasterize_dense_bwd", "rasterize_pallas.py:185",

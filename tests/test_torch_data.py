@@ -75,7 +75,7 @@ def test_unported_sources_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_synth.make_casual_video(rng, cloud_kind="structured", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dataset.load_dataset(t_config.DataConfig(source="colmap"), device="cpu")
+        t_dataset.load_dataset(t_config.DataConfig(source="blender"), device="cpu")
     with pytest.raises(ValueError, match="unknown data source"):
         t_dataset.load_dataset(t_config.DataConfig(source="tape"), device="cpu")
 

@@ -2,7 +2,8 @@
 csrc/rasterize_packed_bwd.cu for the depth-sorted stream,
 csrc/rasterize_dense_fwd.cu and csrc/rasterize_dense_bwd.cu for the dense
 [tiles, capacity] lists, in their table and list forms) held against their
-plain PyTorch versions on the card.  Marked `cuda`: without a card the
+plain PyTorch versions on the card; and, around them, a checkpoint moving
+between the card and the CPU and one pose-aligner gradient on both.  Marked `cuda`: without a card the
 fixture skips every test here (the decision is made inside the fixture,
 so every pytest-xdist worker collects the same tests).
 
@@ -704,3 +705,80 @@ def test_dense_kernels_build_without_spills(cuda):
             print(kernel.source_name, name, *lines, sep="\n  ")
             if "ILi1E" in name:  # template argument PPT = 1
                 assert any(" 0 bytes spill stores" in line for line in lines), lines
+
+
+# -- checkpoints across devices, the aligner's gradient -------------------------
+
+
+def _small_trainer(device, packed=True):
+    from casualhdrsplat_torch import config
+    from casualhdrsplat_torch.data import dataset as dataset_mod
+    from casualhdrsplat_torch.train.trainer import Trainer
+
+    cfg = config.TrainConfig()
+    cfg.model = config.ModelConfig(
+        max_gaussians=384, sh_degree=2, num_virtual_views=3, crf=config.CRFConfig(hidden=8),
+        rasterize=config.RasterizeConfig(tile_h=8, tile_w=16, chunk=32, stream_factor=10,
+                                         packed=packed, tile_capacity=384))
+    cfg.densify.enabled = False
+    cfg.data.eval_every = 0
+    ds = dataset_mod.make_synthetic_dataset(seed=2, device="cpu", n_gaussians=300, n_frames=3,
+                                            n_virtual=3, size=64, angle_span=0.2,
+                                            raster_cfg=cfg.model.rasterize)
+    return Trainer(cfg, ds, device=device)
+
+
+@pytest.mark.parametrize("writer,reader", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path, writer, reader):
+    """A checkpoint written on one device loads into a trainer on the other
+    with every tensor's bits, and the loaded trainer steps on."""
+    from casualhdrsplat_torch.train import optim
+
+    src = _small_trainer(writer)
+    for _ in range(2):
+        src.run_step()
+    path = src.save(str(tmp_path / "run"))
+    dst = _small_trainer(reader)
+    dst.load(path)
+    assert dst.step == 2 and dst.opt_state["count"] == 2
+    for tree in ("params", "mu", "nu"):
+        a = src.params if tree == "params" else src.opt_state[tree]
+        b = dst.params if tree == "params" else dst.opt_state[tree]
+        for (path_a, _, x), (path_b, _, y) in zip(optim.labelled_leaves(a),
+                                                  optim.labelled_leaves(b)):
+            assert path_a == path_b and y.device.type == reader
+            assert torch.equal(x.cpu(), y.cpu()), (tree, path_a)
+    for x, y in zip(src.adc, dst.adc):
+        assert y.device.type == reader and torch.equal(x.cpu(), y.cpu())
+    assert np.isfinite(dst.run_step()["loss"]) and dst.step == 3
+
+
+def test_aligner_gradient_card_vs_cpu(cuda):
+    """One make_aligner step's gradient (render_pose's backward on the
+    per-view packed branch: B2 on the card, its plain version on the CPU)
+    agrees, and so does the aligner's first loss."""
+    from casualhdrsplat_torch.geometry import lie
+    from casualhdrsplat_torch.models import image_formation as imf
+    from casualhdrsplat_torch.train import pose_align
+
+    grads, curves = [], []
+    xi = torch.tensor([0.012, -0.009, 0.015, 0.01, -0.008, 0.012])
+    for dev in (cuda, "cpu"):
+        t = _small_trainer(dev)
+        t.params["gaussians"]["opacity_logit"] += 2.0
+        m = t.cfg.model
+        with torch.no_grad():
+            dt = imf.exposure_of(t.params, 1)
+            vm = imf.poses_at(t.params, t.scene, (t.scene.timestamps[1] + 0.5 * dt)[None], m)[0]
+            target, _, _ = imf.render_pose(t.params, t.scene, vm, m, exposure=dt)
+            vm_off = lie.mat_mul(lie.se3_exp(xi.to(vm.device)), vm)
+        delta = torch.zeros(6, device=vm.device, requires_grad=True)
+        img, _, _ = imf.render_pose(t.params, t.scene, lie.mat_mul(lie.se3_exp(delta), vm_off), m,
+                                    exposure=dt)
+        grads.append(torch.autograd.grad(torch.mean(torch.square(img - target)), delta)[0].cpu())
+        curves.append(pose_align.make_aligner(m, steps=2)(t.params, t.scene, vm_off, dt,
+                                                          target)[2].cpu())
+    scale = float(grads[1].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-4 * scale, rtol=1e-3)
+    torch.testing.assert_close(curves[0], curves[1], atol=1e-6, rtol=1e-4)

@@ -229,9 +229,9 @@ def test_dense_knot_grid_trains(tiny_dataset):
     assert last["loss"] < np.mean(first), (first, last)
 
 
-def test_coarse_to_fine_and_train_loop(tiny_dataset, tmp_path, capsys):
+def test_coarse_to_fine_and_train_loop(tiny_dataset, tmp_path):
     """train() with the coarse-to-fine blur schedule: logs Mpix/s, evaluates
-    on its interval, says that it saves no checkpoint."""
+    on its interval, saves a checkpoint and its config.json at the end."""
     cfg = tiny_cfg()
     cfg.loss.coarse_to_fine_steps = 4
     cfg.loss.coarse_sigma0 = 2.0
@@ -245,7 +245,8 @@ def test_coarse_to_fine_and_train_loop(tiny_dataset, tmp_path, capsys):
     assert t.step == 6 and t._c2f_sigma() == 0.0 and np.isfinite(last["loss"])
     lines = (tmp_path / "parity" / "metrics.jsonl").read_text().splitlines()
     assert len(lines) == 3 and "mpix_s" in lines[0] and "eval_psnr" in lines[2]
-    assert "saves none" in capsys.readouterr().out
+    assert sorted(p.name for p in (tmp_path / "parity").iterdir()) == [
+        "config.json", "metrics.jsonl", "step_6"]
 
 
 def test_shared_binning_self_guard(capsys):
@@ -371,9 +372,3 @@ def test_unported_rounds_raise(tiny_dataset, due, setup):
         torch.testing.assert_close(v, g[k], rtol=0, atol=0, msg=k)
 
 
-def test_save_and_load_raise(tiny_dataset, tmp_path):
-    t = TorchTrainer(tiny_cfg(), tiny_dataset, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.save(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.load(str(tmp_path))
