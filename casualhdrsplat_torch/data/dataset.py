@@ -5,8 +5,9 @@
 
 as host-side numpy arrays; the trainer copies the images to its device
 once.  Sources: the synthetic fixtures, COLMAP sparse models (with their
-image directory) and video frames registered offline by COLMAP.  The
-Blender loader is not ported yet (ROADMAP.md queue A, "Data").
+image directory), video frames registered offline by COLMAP
+(data/video.py drives ffmpeg for the frames) and Blender / NeRF-synthetic
+`transforms.json` scenes (data/blender.py).
 """
 
 from __future__ import annotations
@@ -246,8 +247,7 @@ def load_dataset(cfg: DataConfig, device="cuda") -> Dataset:
         # a video's frames load once extracted and registered by COLMAP
         return load_colmap_dataset(cfg.path, downscale=cfg.downscale).split(cfg.eval_every)
     if cfg.source == "blender":
-        raise NotImplementedError(
-            "data source 'blender': the loader is not ported yet "
-            "(ROADMAP.md queue A, 'Data')"
-        )
+        from casualhdrsplat_torch.data.blender import load_blender_dataset
+
+        return load_blender_dataset(cfg.path, downscale=cfg.downscale).split(cfg.eval_every)
     raise ValueError(f"unknown data source {cfg.source!r}")

@@ -165,8 +165,14 @@ def _rasterize_packed(projs, payload, width, height, cfg: RasterizeConfig, backg
         )
         seg_c, starts_c = binning.waterfill_segments(seg_len, s_budget)
         stream_ids = binning.compact_stream_ids(s_gauss, starts, starts_c, s_budget, n)
-        # the one row gather: payload rows in compacted stream order
-        streams.append(payload[k][stream_ids.long()])
+        # the one row gather: payload rows in compacted stream order.
+        # index_select, whose transpose is index_add_: advanced indexing's
+        # transpose (index_put_ with accumulate) sorts the ids and adds each
+        # run of equal ids serially, and the budget's unused tail is one
+        # run of the pad id N, about 1.2M long a view at 800x800 on a
+        # 131,072-slot store at stream_factor 12: a training step took
+        # 2.8 s on an H100 that way, 0.14 s this way
+        streams.append(payload[k].index_select(0, stream_ids.long()))
         segs.append(seg_c)
         starts_cs.append(starts_c)
         dropped = dropped + seg_len.sum() - seg_c.sum()

@@ -63,10 +63,28 @@
    bound; and, on a dense training step's lists, the table form the dense
    kernels replace: the payload gather, the kernels on the table and the
    gather's transpose.
-10. With --profile, prints the device time of a render_frame request, a
+10. The at-spec quality run (casualhdrsplat_torch.quality_run, in this
+   process): the reference's r05 fixture built on the card through
+   build_fixture (the structured cloud of 30,000 surfels, 12 frames of
+   800x800, 16 ground-truth views a frame, per-view binning at chunk 256,
+   stream_factor 24, capacity 4096; nothing may drop), then QUALITY_STEPS
+   steps with r05's knobs, the first QUALITY_COARSE of them at 400x400
+   (mtpg 64), the rest at 800x800 (mtpg 256), per-view binning at
+   stream_factor 12 over a 131,072-slot store, an eval every
+   QUALITY_EVAL_EVERY steps, and the aligned final eval.  Checks: the
+   report holds the reference's keys, every curve point is finite, the
+   last eval of each rung beats its first in eval_psnr, and B1 and B2 were
+   launched once per step; then both held against their plain versions on
+   the last step's inputs.
+11. bench (casualhdrsplat_torch.bench.main at build()'s defaults: 100k
+   Gaussians, 800x800, 4 views, 16x16 tiles, chunk 128): its JSON line,
+   B1 and B2 once per step.
+12. entry (casualhdrsplat_torch.entry.entry()): the blurred frame's shape
+   and range, B1 launched once.
+13. With --profile, prints the device time of a render_frame request, a
    render_pose request and a training step by kernel (torch.profiler), on
    both paths.
-11. Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
+14. Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
    {...}}`.
 
 Any failed phase exits non-zero without the last line.  There is no CPU
@@ -79,7 +97,6 @@ import concurrent.futures
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -159,6 +176,23 @@ DENSE_WARMUP_STEPS, DENSE_DENSIFY_STEP, DENSE_RESET_STEP = 3, 5, 7
 # run's default (2e-4) is tuned for the gradients of a scene some thousand
 # steps in; a handful of steps from the k-NN init they are smaller.
 DENSE_GRAD_THRESHOLD = 1e-5
+# The quality phase: steps, of which on the coarse rung, and an eval every
+# so many steps (two a rung); the final alignment's Adam steps per frame.
+QUALITY_STEPS, QUALITY_COARSE, QUALITY_EVAL_EVERY, QUALITY_ALIGN_STEPS = 100, 60, 20, 4
+# The knobs of the reference's at-spec run r05 (QUALITY_r05.json, "fixture"),
+# as quality_run flags; the steps and the curriculum's length are cut.
+R05_FLAGS = ["--size", "800", "--gt-gaussians", "30000", "--frames", "12",
+             "--capacity", "131072", "--virtual-views", "8", "--exposure-lo", "0.5",
+             "--exposure-hi", "1.0", "--stream-factor", "12", "--fixture", "structured",
+             "--shake-rot", "0.06", "--shake-trans", "0.03", "--knots-per-frame", "3",
+             "--pose-warmup", "100", "--pose-trans-lr-scale", "1.0", "--exposure-lr", "0.005",
+             "--exposure-init-frac", "0.75", "--crf-lr", "0.001", "--c2f-steps", "0",
+             "--holdout-every", "6", "--coarse-downscale", "2", "--pose-anchor-w", "0.0",
+             "--densify-start", "1600", "--pose-b1", "0.0"]
+# The top-level keys of the reference's report (QUALITY_r05.json).
+REPORT_KEYS = ("round", "run_label", "fixture", "scale", "wall_s", "exposure_recovery",
+               "crf_recovery", "hdr_recovery", "pose_recovery", "psnr_curve", "final_eval",
+               "deblurring_gain_db", "final_eval_aligned", "deblurring_gain_db_aligned")
 
 
 def log(msg: str) -> None:
@@ -1410,6 +1444,138 @@ def bench_shapes(device):
     measure_backward("bench_16x16", bwd_call, reps=20)
 
 
+def quality_phase(device, rp):
+    """The at-spec quality run, cut to QUALITY_STEPS steps: returns
+    (launches of B1, launches of B2) during the run."""
+    import torch
+
+    from casualhdrsplat_torch import quality_run
+    from casualhdrsplat_torch.train import trainer as trainer_mod
+
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL)
+    per_step, captured, step_s = [], [], []
+    run_step = trainer_mod.Trainer.run_step
+
+    def counted_step(trainer):
+        """run_step, noting the B1 and B2 launches it made; the last step's
+        B2 call is kept for the comparison with the plain versions."""
+        before = tuple(k.launches for k in kernels)
+        if trainer.step == QUALITY_STEPS - 1:
+            outs = []
+            _, dt = timed(lambda: captured.extend(capture_calls(
+                rp, "_backward_cuda", lambda: outs.append(run_step(trainer)))))
+            out, = outs
+        else:
+            out, dt = timed(lambda: run_step(trainer))
+        per_step.append(tuple(k.launches - b for k, b in zip(kernels, before)))
+        step_s.append(dt)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "QUALITY_smoke.json")
+        args = R05_FLAGS + [
+            "--steps", str(QUALITY_STEPS), "--coarse-steps", str(QUALITY_COARSE),
+            "--eval-every-steps", str(QUALITY_EVAL_EVERY), "--eval-every-s", "1e9",
+            "--align-steps", str(QUALITY_ALIGN_STEPS), "--fresh", "--run-label", "chip-smoke",
+            "--out", out, "--render-dir", os.path.join(tmp, "quality"),
+            "--fixture-cache", os.path.join(tmp, "fixture_cache"), "--device", device.type]
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer_mod.Trainer.run_step = counted_step
+        try:
+            rc, seconds = timed(lambda: quality_run.main(args))
+        finally:
+            trainer_mod.Trainer.run_step = run_step
+        launches = tuple(k.launches for k in kernels)
+        with open(out) as f:
+            report = json.load(f)
+    coarse, full = step_s[1:QUALITY_COARSE], step_s[QUALITY_COARSE + 1:]
+    log(f"quality run: {QUALITY_STEPS} steps, {len(report['psnr_curve'])} evals and the "
+        f"aligned eval in {seconds:.1f} s (of which the fixture {report['wall_s']['gt_gen']} "
+        f"s); step median {np.median(coarse) * 1e3:.2f} ms on the coarse rung, "
+        f"{np.median(full) * 1e3:.2f} ms at full resolution (the first step of each left "
+        f"out); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"B1 {launches[0]}, B2 {launches[1]}; rasterizer {json.dumps(report['rasterize'])}")
+    log("quality report: " + json.dumps({k: report[k] for k in (
+        "scale", "exposure_recovery", "crf_recovery", "hdr_recovery", "pose_recovery",
+        "final_eval", "deblurring_gain_db", "deblurring_gain_db_aligned")}))
+    missing = [k for k in REPORT_KEYS if k not in report]
+    if rc != 0 or missing:
+        raise AssertionError(f"quality run: exit {rc}, report without {missing}")
+    curve = report["psnr_curve"]
+    for point in curve:
+        log("  eval " + json.dumps({k: point[k] for k in (
+            "step", "res", "loss", "alive", "dropped", "clipped", "eval_psnr",
+            "eval_sharp_psnr", "eval_sharp_psnr_input", "rot_deg_mean", "exp_err_mean")}))
+        if not all(np.isfinite(v) for v in point.values() if isinstance(v, float)):
+            raise AssertionError(f"quality run: non-finite values at step {point['step']}")
+    for res in sorted({p["res"] for p in curve}):
+        rung = [p["eval_psnr"] for p in curve if p["res"] == res]
+        if len(rung) < 2 or not rung[-1] > rung[0]:
+            raise AssertionError(f"quality run: eval_psnr at {res}x{res} did not rise: {rung}")
+    if len(per_step) != QUALITY_STEPS or set(per_step) != {(1, 1)}:
+        raise AssertionError(f"quality run: B1 and B2 once per step, got {set(per_step)}")
+
+    # kernels B1 and B2 on the last step's inputs: 800x800, 8 views of
+    # 16x16 tiles, chunk 256, per-view binning into 12 x 131,072-row streams
+    bwd_call, = captured
+    res = measure_backward("quality_step", bwd_call, reps=10)
+    with torch.no_grad():
+        measure_compositor("quality_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=10)
+    return launches[0], launches[1], res
+
+
+def bench_phase(device, rp):
+    """bench.main at build()'s defaults: its JSON line, and B1 and B2 once
+    per step (a warm-up step and 3 windows).  Returns (launches of B1,
+    launches of B2)."""
+    import contextlib
+    import io
+
+    from casualhdrsplat_torch import bench
+
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL)
+    for k in kernels:
+        k.launches = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc, seconds = timed(lambda: bench.main(["--device", device.type]))
+    launches = tuple(k.launches for k in kernels)
+    lines = text.getvalue().strip().splitlines()
+    for line in lines:
+        log(line)
+    steps = 1 + bench.N_WINDOWS * bench.ITERS_PER_WINDOW
+    result = json.loads(lines[-1])
+    log(f"bench: {steps} steps in {seconds:.1f} s with the build; launches B1 {launches[0]}, "
+        f"B2 {launches[1]}")
+    if rc != 0 or result["metric"] != "rendered Mpix/s/chip fwd+bwd" or not result["value"] > 0:
+        raise AssertionError(f"bench: exit {rc}, line {result}")
+    if launches != (steps, steps):
+        raise AssertionError("bench: B1 and B2 once per step")
+    return launches
+
+
+def entry_phase(device, rp):
+    """entry(): the blurred frame of the tiny model; B1 launched once.
+    Returns the launches of B1."""
+    import torch
+
+    from casualhdrsplat_torch import entry
+
+    fn, args = entry.entry(device)
+    rp.FWD_KERNEL.launches = 0
+    with torch.no_grad():
+        out, dt = timed(lambda: fn(*args))
+    launches = rp.FWD_KERNEL.launches
+    check_image("entry", out, (32, 32, 3), 0.0, 1.0)
+    log(f"entry: blurred frame {tuple(out.shape)}, mean {float(out.mean()):.4f}, "
+        f"{dt * 1e3:.2f} ms, launches B1 {launches}")
+    if launches != 1:
+        raise AssertionError("entry: B1 once per call")
+    return launches
+
+
 def kernel_entry(name, replaces, launches, res):
     return {
         "name": name,
@@ -1433,16 +1599,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke test runs only on the card",
               file=sys.stderr)
         return 2
+    from casualhdrsplat_torch.bench import card_line
     from casualhdrsplat_torch.data import synthetic
     from casualhdrsplat_torch.models import image_formation as imf
     from casualhdrsplat_torch.ops import rasterize_dense as rd
     from casualhdrsplat_torch.ops import rasterize_packed as rp
 
     device = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = card_line()
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -1546,6 +1710,9 @@ def main() -> int:
         device, dataset, rd)
     cli_fwd_launches, cli_bwd_launches, _ = cli_phase(device, dataset, rp)
     del dataset
+    quality_fwd_launches, quality_bwd_launches, _ = quality_phase(device, rp)
+    bench_fwd_launches, bench_bwd_launches = bench_phase(device, rp)
+    entry_fwd_launches = entry_phase(device, rp)
     bench_shapes(device)
     with torch.inference_mode():
         small_slice_check(device)
@@ -1555,9 +1722,12 @@ def main() -> int:
     kernels_line = [
         # each forward kernel is launched by its path's requests and steps
         kernel_entry("rasterize_packed_fwd", "rasterize_packed.py:99",
-                     serve_launches + train_fwd_launches + cli_fwd_launches, res_frame),
+                     serve_launches + train_fwd_launches + cli_fwd_launches
+                     + quality_fwd_launches + bench_fwd_launches + entry_fwd_launches,
+                     res_frame),
         kernel_entry("rasterize_packed_bwd", "rasterize_packed.py:201",
-                     train_bwd_launches + cli_bwd_launches, res_bwd),
+                     train_bwd_launches + cli_bwd_launches + quality_bwd_launches
+                     + bench_bwd_launches, res_bwd),
         kernel_entry("rasterize_dense_fwd", "rasterize_pallas.py:104",
                      dense_serve_launches + dense_fwd_launches, res_dense_fwd),
         kernel_entry("rasterize_dense_bwd", "rasterize_pallas.py:185",

@@ -69,13 +69,16 @@ def test_truncated_ground_truth_raises():
 
 
 def test_unported_sources_raise():
+    """Every source and cloud kind of the reference is ported
+    (test_torch_structured.py, test_torch_blender.py): what raises is an
+    unknown renderer or source, and a Blender scene without its
+    transforms file."""
     rng = np.random.default_rng(0)
     with pytest.raises(ValueError, match="unknown renderer"):
         t_synth.make_casual_video(rng, renderer="raytrace", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_synth.make_casual_video(rng, cloud_kind="structured", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dataset.load_dataset(t_config.DataConfig(source="blender"), device="cpu")
+    with pytest.raises(FileNotFoundError, match="no transforms json"):
+        t_dataset.load_dataset(t_config.DataConfig(source="blender", path="no-such-scene"),
+                               device="cpu")
     with pytest.raises(ValueError, match="unknown data source"):
         t_dataset.load_dataset(t_config.DataConfig(source="tape"), device="cpu")
 

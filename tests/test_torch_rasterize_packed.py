@@ -170,3 +170,32 @@ def test_reference_reports_touched_pairs_and_threshold_ties():
     lo = torch.tensor([0, 16], dtype=torch.int32)
     _, work = t_packed.composite_stream_reference(stream, lo, hi, statics, return_work=True)
     assert work.slots == 8 and work.touched == 8 * 16
+
+
+def test_per_view_stream_gather_transposes_by_index_add(rng):
+    """The per-view branch gathers its stream rows with index_select, whose
+    transpose is index_add_.  The transpose of advanced indexing (index_put_
+    with accumulate) sorts the ids and adds each run of equal ids serially
+    on a GPU, and the unused tail of a stream budget is one long run of the
+    pad id: a training step at 800x800 over a 131,072-slot store at
+    stream_factor 12 took 2.8 s on the card that way, 0.14 s with
+    index_select (PERF.md, the quality run)."""
+    cloud = synthetic.random_cloud(rng, 90)
+    cam = synthetic.orbit_camera(0.1, width=32, img_height=24)
+    cfg = t_config.RasterizeConfig(tile_h=8, tile_w=16, chunk=32, shared_binning=False)
+    colors = _t(cloud.colors).requires_grad_(True)
+    img, _, _ = t_rast.rasterize(
+        _t(cloud.means3d), _t(cloud.quats), _t(cloud.scales), _t(cloud.opacities), colors,
+        _t(np.asarray(cam.viewmat))[None], _t(cam.fx), _t(cam.fy), _t(cam.cx), _t(cam.cy),
+        cam.width, cam.height, cfg)
+    names, seen, stack = set(), set(), [img.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.add(type(node).__name__)
+        stack += [f for f, _ in node.next_functions]
+    assert "IndexSelectBackward0" in names and "IndexBackward0" not in names, names
+    grad, = torch.autograd.grad(img.sum(), colors)
+    assert float(grad.abs().max()) > 0
