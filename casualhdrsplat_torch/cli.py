@@ -10,6 +10,17 @@ exits with an error rather than carry on on the CPU, which only
 `--device cpu` asks for.  render, eval and export load a checkpoint, and
 rebuild the training config from the `config.json` the trainer saved
 beside it unless a preset is named.
+
+`train` and `eval` on a mesh (`parallel.data=D parallel.gauss=G`, D G > 1)
+run one rank per card in a world that torchrun launches:
+
+    torchrun --nproc_per_node=N -m casualhdrsplat_torch.cli train \
+        parallel.gauss=N ...
+
+Each rank joins the world (parallel/distributed.initialize) on the card of
+its LOCAL_RANK; rank 0 writes the logs and checkpoints, whose format is the
+one-device trainer's.  render and export work on the whole store in one
+process, whatever mesh trained it.
 """
 
 from __future__ import annotations
@@ -49,7 +60,29 @@ def _device(args) -> torch.device:
     return dev
 
 
-def _make_trainer(cfg, args, require_checkpoint=False):
+def _world_device(cfg, args, one_process: bool) -> torch.device:
+    """The device of this process: under a launched world (torchrun) it
+    joins the world first and takes its rank's card.  A mesh above one
+    device needs that world; `one_process` commands drop the mesh."""
+    from casualhdrsplat_torch import config
+    from casualhdrsplat_torch.parallel import distributed
+
+    if one_process:
+        cfg.parallel = config.ParallelConfig()
+        return _device(args)
+    if distributed.launched_world():
+        _device(args)  # the same refusal without a card
+        return distributed.initialize(device=args.device)
+    n = cfg.parallel.data * cfg.parallel.gauss
+    if n > 1:
+        raise SystemExit(
+            f"parallel.data={cfg.parallel.data} parallel.gauss={cfg.parallel.gauss} asks "
+            f"for {n} ranks: launch them with torchrun --nproc_per_node={n} -m "
+            f"casualhdrsplat_torch.cli {args.command} ...")
+    return _device(args)
+
+
+def _make_trainer(cfg, args, require_checkpoint=False, one_process=False):
     from casualhdrsplat_torch.train.trainer import Trainer
 
     if require_checkpoint and not args.checkpoint:
@@ -57,7 +90,7 @@ def _make_trainer(cfg, args, require_checkpoint=False):
         # render a fresh random init without a word
         raise SystemExit("this command renders or scores a trained model: pass "
                          "--checkpoint <out_dir/name/step_N>")
-    t = Trainer(cfg, device=_device(args))
+    t = Trainer(cfg, device=_world_device(cfg, args, one_process))
     if args.checkpoint:
         t.load(args.checkpoint)
     return t
@@ -77,6 +110,9 @@ def cmd_train(args):
         if step:
             print(f"resumed from step {step}")
     server = None
+    if args.viewer and t.mesh is not None:
+        raise SystemExit("--viewer renders the whole store in one process: train on one "
+                         "device, or view a checkpoint of the mesh run")
     if args.viewer:
         from casualhdrsplat_torch.viewer.server import ViewerServer, make_orbit_render_fn
 
@@ -107,7 +143,7 @@ def cmd_render(args):
     from casualhdrsplat_torch.train import metrics as metrics_mod
 
     cfg = _build_cfg(args)
-    t = _make_trainer(cfg, args, require_checkpoint=True)
+    t = _make_trainer(cfg, args, require_checkpoint=True, one_process=True)
     dev = t.device
     os.makedirs(args.out, exist_ok=True)
     frames = (
@@ -190,7 +226,7 @@ def cmd_export(args):
     from casualhdrsplat_torch.train import checkpoint as ckpt_mod
 
     cfg = _build_cfg(args)
-    t = _make_trainer(cfg, args, require_checkpoint=True)
+    t = _make_trainer(cfg, args, require_checkpoint=True, one_process=True)
     n = ckpt_mod.export_ply(args.out, t.params["gaussians"])
     print(f"wrote {n} Gaussians to {args.out}")
     return n
@@ -247,7 +283,15 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_export)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        from casualhdrsplat_torch.parallel import distributed
+
+        # leave the world joined under torchrun (_world_device) before the
+        # process ends, as torch.distributed asks
+        if distributed.launched_world() and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

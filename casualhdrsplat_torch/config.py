@@ -2,10 +2,8 @@
 (casualhdrsplat_tpu/config.py).
 
 Field names and defaults are the reference's, so a config dict written by
-either package builds the same model and the same training run.  The
-reference's ParallelConfig arrives with the multi-device slice; until then
-`from_dict` refuses a dict that carries a `parallel` section, as it
-refuses any unknown key.
+either package builds the same model and the same training run, its
+`parallel` mesh included.
 """
 
 from __future__ import annotations
@@ -166,6 +164,14 @@ class LossConfig:
 
 
 @dataclass
+class ParallelConfig:
+    # Mesh axis sizes; (1, 1) = one device.  data: virtual views, gauss:
+    # the Gaussian store in blocks, then tiles (parallel/).
+    data: int = 1
+    gauss: int = 1
+
+
+@dataclass
 class DataConfig:
     source: str = "synthetic"  # "synthetic" | "colmap" | "video"
     path: str = ""
@@ -181,6 +187,7 @@ class TrainConfig:
     densify: DensifyConfig = field(default_factory=DensifyConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     log_every: int = 100
     eval_every: int = 1000
@@ -284,10 +291,11 @@ def preset_4_full() -> TrainConfig:
 
 
 def preset_5_pod() -> TrainConfig:
-    """The multi-host preset: ~3M Gaussians (its mesh axes arrive with the
-    multi-device slice)."""
+    """Multi-device run: ~3M Gaussians sharded over a (4, 2) mesh."""
     cfg = TrainConfig(name="ladder5-pod")
     cfg.model.max_gaussians = 3 << 20
+    cfg.parallel.data = 4
+    cfg.parallel.gauss = 2
     return cfg
 
 

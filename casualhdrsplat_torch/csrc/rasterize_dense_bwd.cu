@@ -7,8 +7,8 @@
 // and plain PyTorch versions: casualhdrsplat_torch/ops/composite.py.
 //
 // What it computes.  Inputs are the lists of the forward kernel
-// (rasterize_dense_fwd.cu: the list form, payload rows through the id
-// table, or the table form), the forward's output out4 [tiles, 4, P] and its
+// (rasterize_dense_fwd.cu: payload rows through the id table), the
+// forward's output out4 [tiles, 4, P] and its
 // upstream gradient g4 [tiles, 4, P].  For every slot k a tile reads and
 // every pixel of the tile, with T_k rebuilt front to back as the forward
 // built it, c4 = (r, g, b, one) of the slot and cg = c4 . g4:
@@ -106,19 +106,17 @@ rasterize_dense_bwd_kernel(
 
   const int i = blockIdx.x;
   const int index = tile_indices[i];
-  // a list-form tile whose view lies outside the rows reads nothing
-  const bool in_rows = !ids || (index >= 0 && index / tiles_per_view < views);
+  // a tile whose view lies outside the rows reads nothing
+  const bool in_rows = index >= 0 && index / tiles_per_view < views;
   const int count = in_rows ? min(counts[i], cap) : 0;
   if (count <= 0) return;  // the whole CTA: an empty list has no gradient
   const int tile = index % tiles_per_view;
   const int ox = (tile % ntx) * tile_w;
   const int oy = (tile / ntx) * tile_h;
-  const size_t first_row =
-      !ids ? (size_t)i * cap : in_rows ? (size_t)(index / tiles_per_view) * view_rows : 0;
-  const int nrows = ids ? view_rows : cap;  // rows a slot may name
+  const size_t first_row = in_rows ? (size_t)(index / tiles_per_view) * view_rows : 0;
   const float4* base = reinterpret_cast<const float4*>(rows) + first_row * (kPayloadDim / 4);
   float* d_base = d_rows + first_row * kPayloadDim;
-  const int* list = ids ? ids + (size_t)i * cap : nullptr;
+  const int* list = ids + (size_t)i * cap;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int column = (int)((kLaneColumn >> (4 * ((lane >> 1) & 15))) & 15);
@@ -157,7 +155,7 @@ rasterize_dense_bwd_kernel(
   // (read after the first piece's vote, a barrier)
 
   // piece j holds slots [s0, s0 + n), inside one chunk
-  stage_rows(staged[0], row_of[0], base, list, nrows, 0, min(SUB, min(g, count)));
+  stage_rows(staged[0], row_of[0], base, list, view_rows, 0, min(SUB, min(g, count)));
   copy_async_commit();
   for (int j = 0, s0 = 0; s0 < count; ++j) {
     const int n = min(SUB, min(count, (s0 / g + 1) * g) - s0);
@@ -173,7 +171,7 @@ rasterize_dense_bwd_kernel(
     }
     // every thread is done with piece j - 1, whose buffers piece j + 1 takes
     if (s1 < count)
-      stage_rows(staged[(j + 1) & 1], row_of[(j + 1) & 1], base, list, nrows, s1,
+      stage_rows(staged[(j + 1) & 1], row_of[(j + 1) & 1], base, list, view_rows, s1,
                  min(SUB, min(count, (s1 / g + 1) * g) - s1));
     copy_async_commit();
     copy_async_wait<1>();  // this thread's copies of piece j have landed
@@ -295,9 +293,8 @@ cudaError_t launch(const float* rows, const int* ids, const int* tile_indices,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Returns a cudaError_t code: 0
-// on a successful launch.  d_rows must come zeroed, laid out as rows;
-// ids == nullptr selects the table form.  In the list form a slot whose id
-// lies outside [0, view_rows), or a tile whose view lies outside
+// on a successful launch.  d_rows must come zeroed, laid out as rows.  A
+// slot whose id lies outside [0, view_rows), or a tile whose view lies outside
 // [0, views), reads and adds nothing (as the forward kernel: no value of
 // ids or tile_indices reaches outside rows or d_rows).  A thread holds at
 // most 8 pixels (nine floats of state each): tiles whose padded strips fit

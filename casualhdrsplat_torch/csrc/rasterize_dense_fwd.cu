@@ -8,15 +8,14 @@
 //
 // What it computes.  Tile i of the launch owns a depth-ordered list of
 // payload rows (binning.py layout: mx, my, cxx, cxy, cyy, opacity, r, g, b,
-// one, 0...), of which it reads the first min(counts[i], capacity) slots.
-// The list comes in one of two forms:
-// - the list form: rows [V (N + 1), 16] is the payload of V views and ids
-//   [tiles, capacity] int32 the id table of binning.assign_tiles_arrays;
-//   slot k of tile i is row view_rows * v + ids[i][k] with view
-//   v = tile_indices[i] / tiles_per_view and view_rows = N + 1.  No
-//   gathered table is made;
-// - the table form (ids == nullptr): rows is a gathered table
-//   [tiles, capacity, 16], and slot k of tile i its row i * capacity + k.
+// one, 0...), of which it reads the first min(counts[i], capacity) slots,
+// through an id table: rows [V (N + 1), 16] is the payload of V views and
+// ids [tiles, capacity] int32 the id table of binning.assign_tiles_arrays;
+// slot k of tile i is row view_rows * v + ids[i][k] with view
+// v = tile_indices[i] / tiles_per_view and view_rows = N + 1.  No gathered
+// table is made.  (A caller that holds a gathered table [tiles, capacity,
+// 16] passes it as one view of tiles * capacity rows with ids i * capacity
+// + k: ops/composite.py::table_as_lists.)
 // For every pixel of the tile it composites the list front to back:
 //     alpha = min(opa * exp(min(power, 0)), clip), 0 below threshold
 //     out4 += [r, g, b, one] * alpha * T;   T *= 1 - alpha
@@ -84,17 +83,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32) rasterize_dense_fwd_kernel(
 
   const int i = blockIdx.x;
   const int index = tile_indices[i];
-  // a list-form tile whose view lies outside the rows reads nothing
-  const bool in_rows = !ids || (index >= 0 && index / tiles_per_view < views);
+  // a tile whose view lies outside the rows reads nothing
+  const bool in_rows = index >= 0 && index / tiles_per_view < views;
   const int count = in_rows ? min(counts[i], cap) : 0;
   const int tile = index % tiles_per_view;
   const int ox = (tile % ntx) * tile_w;
   const int oy = (tile / ntx) * tile_h;
-  const size_t first_row =
-      !ids ? (size_t)i * cap : in_rows ? (size_t)(index / tiles_per_view) * view_rows : 0;
-  const int nrows = ids ? view_rows : cap;  // rows a slot may name
+  const size_t first_row = in_rows ? (size_t)(index / tiles_per_view) * view_rows : 0;
   const float4* base = reinterpret_cast<const float4*>(rows) + first_row * (kPayloadDim / 4);
-  const int* list = ids ? ids + (size_t)i * cap : nullptr;
+  const int* list = ids + (size_t)i * cap;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -120,7 +117,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) rasterize_dense_fwd_kernel(
   // (read after the first piece's vote, a barrier)
 
   // piece j holds slots [s0, s0 + n), inside one chunk
-  if (count > 0) stage_rows(staged[0], nullptr, base, list, nrows, 0, min(kSub, min(g, count)));
+  if (count > 0)
+    stage_rows(staged[0], nullptr, base, list, view_rows, 0, min(kSub, min(g, count)));
   copy_async_commit();
   for (int j = 0, s0 = 0; s0 < count; ++j) {
     const int n = min(kSub, min(count, (s0 / g + 1) * g) - s0);
@@ -136,7 +134,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) rasterize_dense_fwd_kernel(
     }
     // every thread is done with piece j - 1, whose buffer piece j + 1 takes
     if (s1 < count)
-      stage_rows(staged[(j + 1) & 1], nullptr, base, list, nrows, s1,
+      stage_rows(staged[(j + 1) & 1], nullptr, base, list, view_rows, s1,
                  min(kSub, min(count, (s1 / g + 1) * g) - s1));
     copy_async_commit();
     copy_async_wait<1>();  // this thread's copies of piece j have landed
@@ -211,12 +209,10 @@ cudaError_t launch(const float* rows, const int* ids, const int* tile_indices,
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Returns a cudaError_t code:
-// 0 on a successful launch.  ids == nullptr selects the table form (rows is
-// [tiles, capacity, 16]; view_rows and views are not read).  In the list
-// form rows holds `views` views of view_rows rows each; an id outside
-// [0, view_rows) reads as an empty slot, and a tile whose view
-// tile_indices[i] / tiles_per_view lies outside [0, views) as an empty
-// list, so no value of ids or tile_indices reads outside rows.  The
+// 0 on a successful launch.  rows holds `views` views of view_rows rows
+// each; an id outside [0, view_rows) reads as an empty slot, and a tile
+// whose view tile_indices[i] / tiles_per_view lies outside [0, views) as an
+// empty list, so no value of ids or tile_indices reads outside rows.  The
 // mapping fits 8 warps of at most 16 pixels a thread (`plan`); a tile it
 // cannot fit (more than 4096 pixels) is refused with
 // cudaErrorInvalidValue, and the launcher checks that first.

@@ -131,8 +131,7 @@ constexpr int kStagedParts = 3;
 
 // Stage slots [s0, s0 + n) of a dense list into `dst` (kStagedParts float4
 // a slot) by asynchronous copies, and, where `row_of` is given, each slot's
-// row into it: slot k is row list[k] of `base`, or row k of it where the
-// list is the table's own (list == nullptr).  A row outside [0, nrows) is
+// row into it: slot k is row list[k] of `base`.  A row outside [0, nrows) is
 // not read: the slot is staged as a zero row (opacity 0, so it touches no
 // pixel) and its row_of is -1.  The caller commits the group.
 __device__ __forceinline__ void stage_rows(float4* dst, int* row_of, const float4* base,
@@ -140,7 +139,7 @@ __device__ __forceinline__ void stage_rows(float4* dst, int* row_of, const float
   for (int q = threadIdx.x; q < n * kStagedParts; q += blockDim.x) {
     const int k = q / kStagedParts;
     const int part = q - k * kStagedParts;
-    const int row = list ? __ldg(list + s0 + k) : s0 + k;
+    const int row = __ldg(list + s0 + k);
     const bool in = (unsigned)row < (unsigned)nrows;
     if (row_of && part == 0) row_of[k] = in ? row : -1;
     if (in)

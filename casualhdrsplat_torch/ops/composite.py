@@ -10,8 +10,7 @@ function takes leading batch dimensions (tiles), which the reference
 vmaps.  The plain versions of both compositors are built from them: the
 streaming one in ops/rasterize_packed.py, the dense one here.
 
-The dense compositor takes per-tile depth-ordered lists in two forms, one
-kernel per direction for both:
+The dense compositor takes per-tile depth-ordered lists in two forms:
 - `composite_tile_lists` reads payload rows [V (N + 1), 16] through the
   [tiles, capacity] id table of binning.assign_tiles_arrays and is
   differentiable in the rows: the dense path of ops/rasterize.py, which so
@@ -19,11 +18,12 @@ kernel per direction for both:
 - `composite_tiles` composites a gathered payload table [tiles, capacity,
   16] (binning.gather_payload) and is differentiable in it: the
   reference's interface, kept for `backend="xla"` and for callers that
-  hold a table.
+  hold a table.  On the card a table goes to the kernels as lists: one
+  view of tiles x capacity rows, ids i capacity + k (`table_as_lists`).
 Either way:
 - on CUDA tensors the forward launches csrc/rasterize_dense_fwd.cu and the
   backward csrc/rasterize_dense_bwd.cu through ops/rasterize_dense.py (or
-  they raise);
+  they raise); the kernels read lists through an id table only;
 - on CPU tensors they run `composite_tiles_reference` and
   `composite_tiles_backward_reference` (for the list form on the gathered
   lists, `composite_tile_lists_reference` and its backward) on the
@@ -422,7 +422,7 @@ class _CompositeTiles(torch.autograd.Function):
     """Forward kernel B3 and backward kernel B4 (their plain versions on
     CPU tensors, or for backend "xla") as one differentiable function of
     the lists' rows: the list form's payload rows where `ids` is given,
-    else the gathered table."""
+    else (plain versions only) the gathered table."""
 
     @staticmethod
     def forward(ctx, rows, ids, tile_indices, counts, statics):
@@ -508,6 +508,19 @@ def composite_tile_lists(
     return _CompositeTiles.apply(rows, ids, tile_indices, counts, statics)
 
 
+def table_as_lists(gathered: torch.Tensor, tile_indices: torch.Tensor,
+                   statics: CompositeStatics):
+    """A gathered table [tt, capacity, 16] as the list form over the same
+    memory: (rows [tt capacity, 16], ids [tt, capacity] = i capacity + k,
+    tile_indices within one view, statics of one view).  Each row is one
+    slot of one tile, so the backward's atomics add once into each."""
+    tt, cap, _ = gathered.shape
+    tpv = statics.tiles_per_view or statics.ntx * statics.nty
+    ids = torch.arange(tt * cap, dtype=torch.int32, device=gathered.device).reshape(tt, cap)
+    return (gathered.reshape(tt * cap, binning.PAYLOAD_DIM), ids, tile_indices % tpv,
+            statics._replace(num_views=1, tiles_per_view=tpv))
+
+
 def composite_tiles(
     gathered: torch.Tensor,
     statics: CompositeStatics,
@@ -535,4 +548,7 @@ def composite_tiles(
     tile_indices, counts = _default_lists(gathered.shape[0], gathered.shape[1],
                                           gathered.device, tile_indices, counts)
     rasterize_dense.check(gathered, tile_indices, counts, statics)
+    if gathered.device.type == "cuda" and statics.backend != "xla":
+        rows, ids, tile_indices, one_view = table_as_lists(gathered, tile_indices, statics)
+        return _CompositeTiles.apply(rows, ids, tile_indices, counts, one_view)
     return _CompositeTiles.apply(gathered, None, tile_indices, counts, statics)

@@ -11,14 +11,12 @@ pixels, in chunks of G = chunk slots: only the ceil(counts[i] / G)
 occupied chunks, and none once no pixel of the tile has transmittance
 >= eps.  The tile's pixel origin comes from tile_indices[i] %
 tiles_per_view, not from its position in the launch, so a caller may pass
-a slice of the tiles.  A list comes in one of two forms:
-- the list form (`ids` given): `rows` is the flattened payload
-  [V (N + 1), 16] of V = statics.num_views views and `ids` the id table
-  [tiles, capacity] int32 (binning.assign_tiles_arrays); slot k of tile i
-  is row (tile_indices[i] // tiles_per_view) (N + 1) + ids[i, k];
-- the table form (`ids` None): `rows` is a gathered table
-  [tiles, capacity, 16] (binning.gather_payload), slot k of tile i its
-  row [i, k].
+a slice of the tiles.  A list is read through an id table: `rows` is the
+flattened payload [V (N + 1), 16] of V = statics.num_views views and `ids`
+the id table [tiles, capacity] int32 (binning.assign_tiles_arrays); slot k
+of tile i is row (tile_indices[i] // tiles_per_view) (N + 1) + ids[i, k].
+A gathered table [tiles, capacity, 16] comes as one view of tiles x
+capacity rows with ids i capacity + k (composite.table_as_lists).
 The backward rebuilds T over the same chunks and adds every visited
 slot's gradient into a zeroed gradient laid out as `rows`.
 
@@ -69,7 +67,8 @@ def _check_tiles(tt: int, device, tile_indices, counts) -> None:
 
 
 def check(gathered, tile_indices, counts, statics: CompositeStatics) -> None:
-    """Shapes, types and devices `composite_tiles` takes, on any device."""
+    """Shapes, types and devices `composite_tiles` takes (a gathered
+    table), on any device."""
     if gathered.dim() != 3 or gathered.shape[2] != binning.PAYLOAD_DIM:
         raise ValueError(f"table must be [tiles, capacity, 16], got {tuple(gathered.shape)}")
     if gathered.dtype != torch.float32:
@@ -115,45 +114,30 @@ def _kernel_args(tt: int, cap: int, view_rows: int, statics: CompositeStatics, d
     )
 
 
-def _form(rows, ids, statics: CompositeStatics):
-    """(tiles, capacity, rows of a view; 0 for the table form)."""
-    if ids is None:
-        return rows.shape[0], rows.shape[1], 0
-    return ids.shape[0], ids.shape[1], rows.shape[0] // statics.num_views
-
-
-def forward(rows, tile_indices, counts, statics: CompositeStatics, ids=None) -> torch.Tensor:
-    """Launch kernel B3: the lists (table form [tt, capacity, 16], or list
-    form: rows [V (N + 1), 16] through `ids` [tt, capacity]) ->
-    [tt, 4, P].  The table form's counts come from the caller and are
-    checked to lie in [0, capacity]; the list form's come from binning,
-    clamped there (the kernel clamps them too), and are not read here."""
-    if ids is None:
-        check(rows, tile_indices, counts, statics)  # pointers go to the kernel
-    else:
-        check_lists(rows, ids, tile_indices, counts, statics)
-    tt, cap, view_rows = _form(rows, ids, statics)
+def forward(rows, tile_indices, counts, statics: CompositeStatics, ids) -> torch.Tensor:
+    """Launch kernel B3: the lists (rows [V (N + 1), 16] through `ids`
+    [tt, capacity]) -> [tt, 4, P].  The counts come from binning, clamped
+    there (the kernel clamps them too), and are not read here."""
+    check_lists(rows, ids, tile_indices, counts, statics)  # pointers go to the kernel
+    tt, cap = ids.shape
     p = statics.tile_h * statics.tile_w
     if p > MAX_TILE_PIXELS:
         raise ValueError(f"tile of {p} pixels exceeds the kernel's {MAX_TILE_PIXELS}")
-    tensors = (rows, tile_indices, counts) + (() if ids is None else (ids,))
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for t in (rows, tile_indices, counts, ids)):
         raise ValueError("the dense compositor takes contiguous tensors")
     if rows.data_ptr() % 16:
         raise ValueError("the payload rows must be 16-byte aligned")
-    if ids is None and tt and bool(((counts < 0) | (counts > cap)).any()):
-        raise ValueError("counts outside [0, capacity]")
     out = torch.empty((tt, 4, p), dtype=torch.float32, device=rows.device)
     FWD_KERNEL(
-        rows.data_ptr(), None if ids is None else ids.data_ptr(), tile_indices.data_ptr(),
-        counts.data_ptr(), out.data_ptr(), *_kernel_args(tt, cap, view_rows, statics,
-                                                         rows.device),
+        rows.data_ptr(), ids.data_ptr(), tile_indices.data_ptr(), counts.data_ptr(),
+        out.data_ptr(),
+        *_kernel_args(tt, cap, rows.shape[0] // statics.num_views, statics, rows.device),
     )
     return out
 
 
 def backward(rows, tile_indices, counts, out4, g4, statics: CompositeStatics,
-             ids=None) -> torch.Tensor:
+             ids) -> torch.Tensor:
     """Launch kernel B4 on inputs the forward already checked: the gradient
     of `rows`, zeroed here and added into by the kernel (the pad row and
     every row no tile reads stay zero)."""
@@ -161,11 +145,11 @@ def backward(rows, tile_indices, counts, out4, g4, statics: CompositeStatics,
         raise ValueError(f"gradient {tuple(g4.shape)} {g4.dtype} does not match the "
                          f"output {tuple(out4.shape)}")
     g4 = g4.contiguous()
-    tt, cap, view_rows = _form(rows, ids, statics)
+    tt, cap = ids.shape
     d_rows = torch.zeros_like(rows)
     BWD_KERNEL(
-        rows.data_ptr(), None if ids is None else ids.data_ptr(), tile_indices.data_ptr(),
-        counts.data_ptr(), out4.data_ptr(), g4.data_ptr(), d_rows.data_ptr(),
-        *_kernel_args(tt, cap, view_rows, statics, rows.device),
+        rows.data_ptr(), ids.data_ptr(), tile_indices.data_ptr(), counts.data_ptr(),
+        out4.data_ptr(), g4.data_ptr(), d_rows.data_ptr(),
+        *_kernel_args(tt, cap, rows.shape[0] // statics.num_views, statics, rows.device),
     )
     return d_rows

@@ -389,3 +389,26 @@ def composite_stream_backward_reference(
             t[sel] = t_out
             r_carry[sel] = r_out
     return d_stream
+
+
+class _ClipCotangentRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, stream_payload, lo, hi):
+        ctx.lo, ctx.hi = lo, hi
+        return stream_payload.view_as(stream_payload)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = torch.arange(g.shape[0], device=g.device)
+        keep = (rows >= ctx.lo) & (rows < ctx.hi)
+        return torch.where(keep[:, None], g, 0.0), None, None
+
+
+def clip_cotangent_rows(stream_payload: torch.Tensor, lo, hi) -> torch.Tensor:
+    """Identity on the stream [M, 16]; its backward zeroes the cotangent of
+    the rows outside [lo, hi) (ints or 0-d tensors).  The reference clips a
+    device's tile slice of the stream with it, since its backward kernel
+    leaves the rows it does not visit uninitialized; B2 and its plain
+    version write zeros there already, so the sharded path does not call
+    it.  Kept for parity with the reference."""
+    return _ClipCotangentRows.apply(stream_payload, lo, hi)

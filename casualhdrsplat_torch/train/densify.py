@@ -11,9 +11,13 @@ The store never changes shape: a round is masked writes on the
   (optim.zero_state_at).
 
 Screen-space gradient statistics are accumulated from the rasterizer's
-`means2d_offset` gradient tap between rounds.  The reference's sharded
-variants (`densify_and_prune_sharded`, `rebalance_store`) arrive with the
-multi-device slice.
+`means2d_offset` gradient tap between rounds.
+
+On a (data, gauss) mesh (parallel/) every rank holds one block of the store
+and runs the same round on it (`densify_and_prune_sharded`): shard-local
+free lists, so the slot surgery needs no collective but the report's sum.
+`rebalance_store` evens the alive counts of the blocks when they drift
+apart.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 from casualhdrsplat_torch.config import DensifyConfig
 from casualhdrsplat_torch.geometry.lie import quat_to_rotmat
 from casualhdrsplat_torch.models.gaussians import inverse_sigmoid
+from casualhdrsplat_torch.parallel import collectives, sharding
+from casualhdrsplat_torch.parallel.mesh import GAUSS_AXIS
 from casualhdrsplat_torch.train import optim as optim_mod
 
 
@@ -197,6 +203,108 @@ def densify_and_prune_with_noise(
         num_alive=new_alive.sum(),
     )
     return out, opt_state, AdcState.zero(n, dev), report
+
+
+@torch.no_grad()
+def densify_and_prune_sharded(
+    gauss: Dict[str, torch.Tensor],
+    opt_state,
+    adc: AdcState,
+    generator: torch.Generator,
+    cfg: DensifyConfig,
+    scene_extent: float,
+    image_diag: float,
+    mesh,
+    screen_prune: bool = False,
+    prune_only: bool = False,
+):
+    """One round on this rank's block of a `gauss`-sharded store.
+
+    The same round as `densify_and_prune`, on the block alone: per-block
+    free lists, so slot grants, scatters and the moments' zeroing stay in
+    the block.  A block that runs out of free slots defers its lowest-rank
+    requesters to later rounds, as the one-device round does globally.  The
+    split noise [2, block, 3] comes from `generator`, which the caller seeds
+    per block (the reference's fold_in(key, g)), the same on every `data`
+    replica of the block, or the replicas part.  The report is summed over
+    `gauss` (the same on every rank)."""
+    n = gauss["alive"].shape[0]
+    eps = torch.randn((2, n, 3), generator=generator, dtype=torch.float32,
+                      device=generator.device).to(gauss["means"].device)
+    return densify_and_prune_sharded_with_noise(
+        gauss, opt_state, adc, eps[0], eps[1], cfg, scene_extent, image_diag, mesh,
+        screen_prune=screen_prune, prune_only=prune_only,
+    )
+
+
+@torch.no_grad()
+def densify_and_prune_sharded_with_noise(gauss, opt_state, adc: AdcState, eps1, eps2,
+                                         cfg: DensifyConfig, scene_extent: float,
+                                         image_diag: float, mesh, screen_prune: bool = False,
+                                         prune_only: bool = False):
+    """`densify_and_prune_sharded` for a given draw of the block's split
+    noise."""
+    out, opt_state, adc, report = densify_and_prune_with_noise(
+        gauss, opt_state, adc, eps1, eps2, cfg, scene_extent, image_diag,
+        screen_prune=screen_prune, prune_only=prune_only,
+    )
+    summed = collectives.all_reduce(torch.stack(list(report)).to(torch.int64), mesh,
+                                    GAUSS_AXIS, "densify_report")
+    return out, opt_state, adc, AdcReport(*summed.unbind())
+
+
+def shard_alive_counts(alive: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Alive Gaussians of each contiguous block of a full store, [n_shards]."""
+    return alive.reshape(n_shards, -1).sum(1)
+
+
+def rebalance_order(alive: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The permutation that evens the blocks of a full store: src [capacity],
+    slot j takes slot src[j].  Alive slots get global ranks in index order
+    (a stable sort) and rank k moves to block k % n_shards, so the blocks'
+    alive counts differ by at most one afterwards."""
+    cap = alive.shape[0]
+    if cap % n_shards:
+        raise ValueError(f"capacity {cap} not divisible by {n_shards} shards")
+    block = cap // n_shards
+    idx = torch.arange(cap, device=alive.device)
+    # alive first, each group in index order: order[k] = slot of rank k
+    order = torch.argsort(torch.where(alive, idx, idx + cap), stable=True)
+    # rank k lands at (k % S) block + k // S, a bijection whose inverse is
+    # k(j) = (j % block) S + j // block: a gather, no scatter
+    return order[(idx % block) * n_shards + idx // block]
+
+
+@torch.no_grad()
+def rebalance_store(gauss: Dict[str, torch.Tensor], opt_state, adc: AdcState, n_shards: int,
+                    mesh=None):
+    """Spread the alive Gaussians evenly over the store's `n_shards` blocks.
+
+    One permutation (`rebalance_order`) of every capacity-indexed leaf: the
+    parameters, the Adam moments and the statistics travel with their
+    Gaussian.  Without a mesh the leaves are the full store.  On a mesh they
+    are this rank's block: each leaf is all-gathered over `gauss`, permuted,
+    and the rank keeps its block.  It runs rarely (on the imbalance
+    threshold), so it needs no all-to-all.  Returns (gauss, opt_state, adc);
+    the moments are rebuilt, not written in place."""
+    if mesh is None:
+        src = rebalance_order(gauss["alive"], n_shards)
+
+        def take(t):
+            return t[src]
+    else:
+        src = rebalance_order(sharding.gather_leaf(gauss["alive"], mesh, "rebalance"), n_shards)
+        mine = sharding.block(src.shape[0], mesh)
+
+        def take(t):
+            return sharding.gather_leaf(t, mesh, "rebalance")[src[mine]]
+
+    def moments(tree):
+        return dict(tree, gaussians={k: take(v) for k, v in tree["gaussians"].items()})
+
+    out = {k: take(v) for k, v in gauss.items()}
+    opt_out = dict(opt_state, mu=moments(opt_state["mu"]), nu=moments(opt_state["nu"]))
+    return out, opt_out, AdcState(*(take(x) for x in adc))
 
 
 def screen_prune_active(step: int, cfg: DensifyConfig) -> bool:

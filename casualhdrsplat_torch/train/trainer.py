@@ -1,5 +1,5 @@
-"""Training orchestration on one device.  Counterpart of
-casualhdrsplat_tpu/train/trainer.py.
+"""Training orchestration, on one device or on a (data, gauss) mesh.
+Counterpart of casualhdrsplat_tpu/train/trainer.py.
 
 One `run_step` spans the full differentiable chain: virtual-pose spline
 sampling, HDR rasterization of all n virtual views in one compositor
@@ -14,6 +14,14 @@ four counts of a density-control round's report when one ran).
 After the step, on the reference's schedule: a densify round in the
 densify window, a prune-only round outside it while the screen-size prune
 is armed, and the opacity reset (train/densify.py).
+
+On a mesh (parallel/: `cfg.parallel.data * cfg.parallel.gauss > 1`, or a
+mesh handed in) every rank runs the same step on its block of the store:
+the frame render goes through parallel/render.py, Adam updates the blocks
+and the replicated leaves alike, density control runs on each block
+(`densify_and_prune_sharded`) and is followed by `_maybe_rebalance`.  Every
+rank draws the same frames and reads its scalars in the same order, so the
+collectives meet.
 
 `save` writes the reference's checkpoint payload plus what a continuation
 needs to match an uninterrupted run bit for bit, which the reference
@@ -33,6 +41,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from casualhdrsplat_torch import config as config_mod
 from casualhdrsplat_torch.config import TrainConfig
@@ -44,6 +53,11 @@ from casualhdrsplat_torch.models import losses
 from casualhdrsplat_torch.models import perceptual
 from casualhdrsplat_torch.ops.binning import tile_grid
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
+from casualhdrsplat_torch.parallel import collectives
+from casualhdrsplat_torch.parallel import mesh as mesh_mod
+from casualhdrsplat_torch.parallel import render as prender
+from casualhdrsplat_torch.parallel import sharding
+from casualhdrsplat_torch.parallel.mesh import GAUSS_AXIS
 from casualhdrsplat_torch.train import checkpoint as ckpt_mod
 from casualhdrsplat_torch.train import densify as densify_mod
 from casualhdrsplat_torch.train import metrics as metrics_mod
@@ -56,6 +70,7 @@ class Trainer:
         cfg: TrainConfig,
         dataset: Optional[Dataset] = None,
         device="cuda",
+        mesh=None,
     ):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -70,27 +85,58 @@ class Trainer:
             cfg.model,
             torch.Generator().manual_seed(cfg.seed),
         )
+        # Mesh-parallel when the parallel config asks for more than one
+        # device, or when the caller hands a mesh (of any shape): the store,
+        # its moments and statistics lie in blocks over `gauss`, the step
+        # renders through parallel/render.py.
+        self.mesh = mesh
+        if self.mesh is None and cfg.parallel.data * cfg.parallel.gauss > 1:
+            self.mesh = mesh_mod.make_mesh(cfg.parallel)
+        # logs, prints and checkpoint files come from one rank
+        self.lead = self.mesh is None or self.mesh.rank == 0
+        if self.mesh is not None:
+            # every rank starts from rank 0's parameters
+            sharding.broadcast_tree(self.params, self.mesh)
+        self._guard_shared_binning()
+        self._guard_footprint_budget()
+        if self.mesh is not None:
+            self.params = sharding.shard_params(self.params, self.mesh)
         self.opt = optim_mod.make_optimizer(cfg.optim, self.scene_extent)
         self.opt_state = self.opt.init(self.params)
-        self.adc = densify_mod.AdcState.zero(cfg.model.max_gaussians, self.device)
+        self.adc = densify_mod.AdcState.zero(self._capacity(), self.device)
         self._init_log_exposures = self.params["log_exposures"].clone()
         # oversized-splat watchdog state (_watch_overflow)
         self._clip_floor = float("inf")
         self._clip_warn_at = 0.0
         self._screen_prune_armed = False
-        self._guard_shared_binning()
-        self._guard_footprint_budget()
         # the frame stack lives on the device once
         self.images = torch.as_tensor(self.dataset.images, device=self.device)
         self.step = 0
         # the split noise of the density-control rounds (the reference seeds
-        # its jax.random key the same way; the numbers differ)
-        self._adc_generator = torch.Generator().manual_seed(cfg.seed + 1)
-        # the reference's frame sequence: both trainers draw the same frames
+        # its jax.random key the same way; the numbers differ); on a mesh one
+        # generator per block, seeded by (seed, block): the counterpart of
+        # the reference's fold_in(key, g)
+        self._adc_generator = torch.Generator().manual_seed(self._adc_seed())
+        # the reference's frame sequence: both trainers, and every rank,
+        # draw the same frames
         self._rng = np.random.default_rng(cfg.seed + 2)
         self.logger: Optional[metrics_mod.MetricsLogger] = None
         self._image_diag = float(np.hypot(self.dataset.width, self.dataset.height))
         self.lock = threading.Lock()
+
+    def _capacity(self) -> int:
+        """Slots this trainer holds: the store, or its block on a mesh."""
+        return self.params["gaussians"]["alive"].shape[0]
+
+    def _adc_seed(self) -> int:
+        if self.mesh is None:
+            return self.cfg.seed + 1
+        g = self.mesh.axis_index(GAUSS_AXIS)
+        return int(np.random.SeedSequence((self.cfg.seed + 1, g)).generate_state(1)[0])
+
+    def _print(self, msg: str) -> None:
+        if self.lead:
+            print(msg, flush=True)
 
     def _guard_shared_binning(self) -> None:
         """Startup self-guard: shared binning's Chebyshev radius inflation
@@ -117,24 +163,22 @@ class Trainer:
         if shared <= budget:
             return
         if per_view <= budget:
-            print(
+            self._print(
                 f"WARNING: shared binning disabled — motion-inflated "
                 f"binning demand ({shared} rows) exceeds the stream "
                 f"budget ({budget}); exact per-view binning fits "
                 f"({per_view} rows/view) and is used instead. Raise "
                 f"model.rasterize.stream_factor to keep shared binning "
-                f"(docs/TUNING.md).",
-                flush=True,
+                f"(docs/TUNING.md)."
             )
             self.cfg.model.rasterize = dataclasses.replace(r, shared_binning=False)
         else:
-            print(
+            self._print(
                 f"WARNING: binning demand exceeds the stream budget in "
                 f"BOTH regimes (shared {shared}, per-view {per_view}, "
                 f"budget {budget} rows) — training will waterfill-drop "
                 f"contributions. Raise model.rasterize.stream_factor or "
-                f"shrink footprints (docs/TUNING.md).",
-                flush=True,
+                f"shrink footprints (docs/TUNING.md)."
             )
 
     def _guard_footprint_budget(self) -> None:
@@ -171,15 +215,14 @@ class Trainer:
         n_over = int((area > r.max_tiles_per_gaussian).sum())
         if n_over > max(1, int(1e-3 * n_vis)):
             cut = int(np.maximum(area - r.max_tiles_per_gaussian, 0).sum())
-            print(
+            self._print(
                 f"WARNING: {n_over}/{n_vis} visible splats of the INITIAL "
                 f"scene exceed max_tiles_per_gaussian={r.max_tiles_per_gaussian} "
                 f"({cut} bbox cells truncated at frame 0) — their visible "
                 f"coverage will be cut and training can enter a fat-splat "
                 f"runaway. Raise model.rasterize.max_tiles_per_gaussian "
                 f"(docs/TUNING.md: 'clipped at step 0 is a correctness "
-                f"smell').",
-                flush=True,
+                f"smell')."
             )
 
     # -- the step ------------------------------------------------------------
@@ -191,14 +234,19 @@ class Trainer:
             return 0.0
         return float(self.cfg.loss.coarse_sigma0) * max(0.0, 1.0 - self.step / n)
 
+    def _render_frame(self, p, frame_id: int, sh_degree: int, offset=None):
+        if self.mesh is not None:
+            return prender.render_frame_sharded(p, self.scene, frame_id, self.cfg.model,
+                                                self.mesh, sh_degree=sh_degree,
+                                                means2d_offset=offset)
+        return imf.render_frame(p, self.scene, frame_id, self.cfg.model, sh_degree=sh_degree,
+                                means2d_offset=offset)
+
     def _loss(self, p, offset, frame_id: int, blur_sigma, sh_degree: int):
         """The training objective on one frame: (loss, aux)."""
         cfg = self.cfg
         target = self.images[frame_id]
-        out = imf.render_frame(
-            p, self.scene, frame_id, cfg.model,
-            sh_degree=sh_degree, means2d_offset=offset,
-        )
+        out = self._render_frame(p, frame_id, sh_degree, offset)
         pred, tgt = out.blurred_ldr, target
         if cfg.loss.coarse_to_fine_steps > 0:
             # the kernel must cover ~3 sigma at the schedule's start
@@ -248,9 +296,7 @@ class Trainer:
                 paths.append(path)
                 leaves.append(leaf)
             optim_mod.tree_set(p, path, leaf)
-        offset = torch.zeros(
-            (self.cfg.model.max_gaussians, 2), device=self.device, requires_grad=True
-        )
+        offset = torch.zeros((self._capacity(), 2), device=self.device, requires_grad=True)
         loss, aux = self._loss(p, offset, frame_id, blur_sigma, deg)
         found = torch.autograd.grad(loss, leaves + [offset], allow_unused=True)
         grads: Dict[str, object] = {"crf": {}}
@@ -265,9 +311,12 @@ class Trainer:
         that run_step reads the device once."""
         loss, aux, grads, g2d = self.loss_and_grads(frame_id, blur_sigma, sh_degree)
         self.opt_state = self.opt.update(grads, self.opt_state, self.params)
+        radii = aux["radii"]
+        if self.mesh is not None:  # the projection of the whole store: this block's
+            radii = radii[:, sharding.block(radii.shape[1], self.mesh)]
         with torch.no_grad():
             self.adc = densify_mod.accumulate(
-                self.adc, g2d, aux["radii"],
+                self.adc, g2d, radii,
                 image_size=(self.dataset.width, self.dataset.height),
             )
             return torch.stack([
@@ -287,13 +336,41 @@ class Trainer:
         )
 
     def _densify(self, screen_prune: bool, prune_only: bool = False):
-        gauss, self.opt_state, self.adc, report = densify_mod.densify_and_prune(
-            self.params["gaussians"], self.opt_state, self.adc, self._adc_generator,
-            self.cfg.densify, self.scene_extent, self._image_diag,
-            screen_prune=screen_prune, prune_only=prune_only,
-        )
+        args = (self.params["gaussians"], self.opt_state, self.adc, self._adc_generator,
+                self.cfg.densify, self.scene_extent, self._image_diag)
+        if self.mesh is not None:
+            gauss, self.opt_state, self.adc, report = densify_mod.densify_and_prune_sharded(
+                *args, self.mesh, screen_prune=screen_prune, prune_only=prune_only)
+        else:
+            gauss, self.opt_state, self.adc, report = densify_mod.densify_and_prune(
+                *args, screen_prune=screen_prune, prune_only=prune_only)
         self.params["gaussians"] = gauss
         return report
+
+    def _shard_counts(self) -> np.ndarray:
+        """Alive Gaussians of every block, the same on every rank."""
+        alive = sharding.gather_leaf(self.params["gaussians"]["alive"], self.mesh, "alive")
+        return densify_mod.shard_alive_counts(alive, self.mesh.size(GAUSS_AXIS)).cpu().numpy()
+
+    def _rebalance(self) -> None:
+        gauss, self.opt_state, self.adc = densify_mod.rebalance_store(
+            self.params["gaussians"], self.opt_state, self.adc,
+            self.mesh.size(GAUSS_AXIS), mesh=self.mesh)
+        self.params["gaussians"] = gauss
+
+    def _maybe_rebalance(self) -> bool:
+        """After a sharded density-control round: repack the store across
+        the blocks when their alive counts drifted apart by more than the
+        configured share of a block.  Every rank decides on the same
+        all-gathered counts, so all take the same branch."""
+        thr = self.cfg.densify.rebalance_threshold
+        if self.mesh is None or thr <= 0 or self.mesh.size(GAUSS_AXIS) <= 1:
+            return False
+        counts = self._shard_counts()
+        if counts.max() - counts.min() <= thr * self._capacity():
+            return False
+        self._rebalance()
+        return True
 
     def run_step(self) -> Dict[str, float]:
         with self.lock:
@@ -312,6 +389,7 @@ class Trainer:
         report = None
         if in_window and self.step % d.interval == 0:
             report = self._densify(armed)
+            self._maybe_rebalance()
         elif d.enabled and not in_window and armed and self.step % d.interval == 0:
             # Oversized-splat response outside the densify window: no
             # clone/split growth after densify.stop_iter, just screen-radius
@@ -357,7 +435,7 @@ class Trainer:
         )
         trigger = max(3.0 * self._clip_floor, 0.02 * budget, self._clip_warn_at)
         if clipped > trigger:
-            print(
+            self._print(
                 f"WARNING step {self.step}: {clipped:.0f} bbox cells "
                 f"clipped by the max_tiles_per_gaussian clamp "
                 f"({clipped / budget:.1%} of the bbox budget, floor was "
@@ -365,8 +443,7 @@ class Trainer:
                 f"binning footprint; arming the automatic screen-size "
                 f"prune (densify.prune_screen_radius="
                 f"{self.cfg.densify.prune_screen_radius}). See "
-                f"docs/TUNING.md.",
-                flush=True,
+                f"docs/TUNING.md."
             )
             self._clip_warn_at = 2.0 * clipped
             self._screen_prune_armed = True
@@ -374,7 +451,8 @@ class Trainer:
     def train(self) -> Dict[str, float]:
         cfg = self.cfg
         out_dir = os.path.join(cfg.out_dir, cfg.name)
-        self.logger = self.logger or metrics_mod.MetricsLogger(out_dir)
+        if self.lead:
+            self.logger = self.logger or metrics_mod.MetricsLogger(out_dir)
         timer = metrics_mod.Timer()
         last: Dict[str, float] = {}
         # Persistent stream-budget overflow corrupts gradients (the fit
@@ -389,17 +467,16 @@ class Trainer:
         while self.step < cfg.optim.max_steps:
             last = self.run_step()
             if not overflow_warned and last["dropped"] > 0.05 * stream_budget:
-                print(
+                self._print(
                     f"WARNING step {self.step}: {last['dropped']:.0f} "
                     f"intersections dropped (> 5% of the "
                     f"{stream_budget}-row stream budget). Training "
                     "gradients are being truncated — raise "
                     "model.rasterize.stream_factor or reduce footprint "
-                    "demand (docs/TUNING.md).",
-                    flush=True,
+                    "demand (docs/TUNING.md)."
                 )
                 overflow_warned = True
-            if self.step % cfg.log_every == 0:
+            if self.step % cfg.log_every == 0 and self.lead:
                 dt = timer.lap()
                 mpix = (
                     cfg.log_every
@@ -411,7 +488,9 @@ class Trainer:
                 )
                 self.logger.log(self.step, mpix_s=mpix, **last)
             if cfg.eval_every and self.step % cfg.eval_every == 0:
-                self.logger.log(self.step, **self.evaluate())
+                metrics = self.evaluate()  # on every rank: its renders are collective
+                if self.lead:
+                    self.logger.log(self.step, **metrics)
             if cfg.checkpoint_every and self.step % cfg.checkpoint_every == 0:
                 self.save(out_dir)
         self.save(out_dir)
@@ -444,11 +523,14 @@ class Trainer:
             idx = self.dataset.train_indices[:2]
         deg = self.active_sh_degree()
         cfg = self.cfg.model
+        # the one-pose renders take the whole store, gathered once on a mesh
+        full = self.params if self.mesh is None else sharding.gather_params(self.params,
+                                                                             self.mesh)
         blurred, sharp, sharp_in, lpips_vals = [], [], [], []
         sharp_gt = self.dataset.sharp_images
         for i in idx:
             fid = int(i)
-            out = imf.render_frame(self.params, self.scene, fid, cfg, sh_degree=deg)
+            out = self._render_frame(self.params, fid, deg)
             target = self.images[fid]
             blurred.append(self._metric_vector(out.blurred_ldr, target))
             if perceptual.available():
@@ -456,8 +538,7 @@ class Trainer:
                                                    target.cpu().numpy()))
             if sharp_gt is not None:
                 gt = torch.as_tensor(sharp_gt[fid], device=self.device)
-                deb, _, _ = imf.render_deblurred(self.params, self.scene, fid, cfg,
-                                                 sh_degree=deg)
+                deb, _, _ = imf.render_deblurred(full, self.scene, fid, cfg, sh_degree=deg)
                 sharp.append(self._metric_vector(deb, gt))
                 sharp_in.append(float(losses.psnr(target, gt)))
         psnr_v, ssim_v, ms_v = np.mean(blurred, axis=0)
@@ -479,7 +560,7 @@ class Trainer:
                     self.dataset.train_indices, int(i),
                 )
                 ldr, _, _ = imf.render_deblurred(
-                    self.params, self.scene, int(i), cfg, sh_degree=deg,
+                    full, self.scene, int(i), cfg, sh_degree=deg,
                     exposure=torch.tensor(float(np.exp(log_e)), device=self.device),
                 )
                 gt = torch.as_tensor(sharp_gt[int(i)], device=self.device)
@@ -500,44 +581,72 @@ class Trainer:
         """Write the checkpoint `out_dir/step_<step>` and, beside it, the
         resolved config as `config.json` (rewritten on every save, through
         a temporary file, so that a stale or truncated one never stays).
-        Returns the checkpoint's path."""
+        Returns the checkpoint's path.
+
+        On a mesh every rank calls it: the `gauss` ranks gather the store,
+        its moments and statistics, and rank 0 writes the one-device
+        format, so either kind of trainer loads what either wrote.  The
+        blocks' split-noise generators go under `resume.adc_generators`,
+        block 0's also where the one-device trainer keeps its own."""
         out_abs = os.path.abspath(out_dir)
         path = os.path.join(out_abs, f"step_{self.step}")
-        ckpt_mod.save(path, {
-            "params": self.params,
-            "opt_state": self.opt_state,
-            "adc": self.adc._asdict(),
-            "step": self.step,
+        params, opt_state, adc = self.params, self.opt_state, self.adc
+        generators = [self._adc_generator.get_state()]
+        if self.mesh is not None:
+            params = sharding.gather_params(params, self.mesh)
+            opt_state = sharding.gather_opt_state(opt_state, self.mesh)
+            adc = densify_mod.AdcState(*(sharding.gather_leaf(x, self.mesh) for x in adc))
+            generators = [s.cpu() for s in collectives.all_gather(
+                generators[0].to(self.device), self.mesh, GAUSS_AXIS, "gather_state")]
+        resume = {
             # beyond the reference's payload: the state a continuation
             # needs to draw what an uninterrupted run would have drawn
-            "resume": {
-                "adc_generator": self._adc_generator.get_state(),
-                "rng": self._rng.bit_generator.state,
-                "clip_floor": self._clip_floor,
-                "clip_warn_at": self._clip_warn_at,
-                "screen_prune_armed": self._screen_prune_armed,
-            },
-        })
-        # The parameter and optimizer trees depend on the config (CRF kind,
-        # capacity, ...): render, eval and export rebuild it from this file.
-        cfg_path = os.path.join(out_abs, "config.json")
-        tmp = cfg_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(config_mod.to_dict(self.cfg), f, indent=1)
-        os.replace(tmp, cfg_path)
+            "adc_generator": generators[0],
+            "rng": self._rng.bit_generator.state,
+            "clip_floor": self._clip_floor,
+            "clip_warn_at": self._clip_warn_at,
+            "screen_prune_armed": self._screen_prune_armed,
+        }
+        if self.mesh is not None:
+            resume["adc_generators"] = generators
+        if self.lead:
+            ckpt_mod.save(path, {"params": params, "opt_state": opt_state,
+                                 "adc": adc._asdict(), "step": self.step, "resume": resume})
+            # The parameter and optimizer trees depend on the config (CRF
+            # kind, capacity, ...): render, eval and export rebuild it from
+            # this file.
+            cfg_path = os.path.join(out_abs, "config.json")
+            tmp = cfg_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(config_mod.to_dict(self.cfg), f, indent=1)
+            os.replace(tmp, cfg_path)
+        if self.mesh is not None:
+            dist.barrier()  # the files exist on return, on every rank
         return path
 
     def load(self, path: str) -> None:
         """Restore a checkpoint written by `save` onto this trainer's
-        device, whichever device wrote it."""
+        device, whichever device or mesh wrote it.  On a mesh every rank
+        reads it and keeps its block; a checkpoint without one generator
+        per block (a one-device trainer's, or another mesh's) reseeds the
+        blocks' generators from (seed, block)."""
         payload = ckpt_mod.restore(path, map_location=self.device)
+        params, opt_state = payload["params"], payload["opt_state"]
+        adc = densify_mod.AdcState(**payload["adc"])
+        resume = payload["resume"]
+        generator = resume["adc_generator"]
+        if self.mesh is not None:
+            params = sharding.shard_params(params, self.mesh)
+            opt_state = sharding.shard_opt_state(opt_state, self.mesh)
+            adc = sharding.shard_tree(adc, adc.count.shape[0], self.mesh)
+            states = resume.get("adc_generators", [])
+            n_shards = self.mesh.size(GAUSS_AXIS)
+            generator = (states[self.mesh.axis_index(GAUSS_AXIS)] if len(states) == n_shards
+                         else torch.Generator().manual_seed(self._adc_seed()).get_state())
         with self.lock:
-            self.params = payload["params"]
-            self.opt_state = payload["opt_state"]
-            self.adc = densify_mod.AdcState(**payload["adc"])
+            self.params, self.opt_state, self.adc = params, opt_state, adc
             self.step = int(payload["step"])
-            resume = payload["resume"]
-            self._adc_generator.set_state(resume["adc_generator"].cpu())
+            self._adc_generator.set_state(generator.cpu())
             self._rng.bit_generator.state = resume["rng"]
             self._clip_floor = resume["clip_floor"]
             self._clip_warn_at = resume["clip_warn_at"]

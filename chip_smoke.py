@@ -37,7 +37,20 @@
    the round cloned or split, `alive` rose by what it granted less what it
    pruned, the moments of the new slots are zero, the reset clamped every
    opacity.
-7. The command line on the same video written as a COLMAP capture (text
+7. The sharded path (parallel/) on the same video, ladder4 with per-view
+   binning: (a) a world of one (nccl, mesh (1, 1)) in this process, one
+   step's gradients and then a warm-up and 5 steps against the one-device
+   trainer from the same state (loss, PSNR, every group's gradient), B1
+   and B2 once a step, the step wall against the one-device per-view
+   step's; (b) two gloo ranks sharing cuda:0 on the meshes (1, 2) and
+   (2, 1), from 98,304 of the cloud's points: one render_frame and one
+   step's gradients, packed and dense, against the one-device port on the
+   card, a step, and on the packed trainer a densify round and a rebalance
+   (counts kept, spread not wider); the ranks report their launches and
+   each collective's bytes and host time per step; (c) `bench --sharded
+   1,1` (its JSON line, B1 and B2 once a step) and dryrun_multichip(2)
+   on two gloo ranks.
+8. The command line on the same video written as a COLMAP capture (text
    model, 8-bit PNG frames), in this process: `train --preset ladder4` for
    6 steps with checkpoints at 3 and 6 and an eval at 6; steps 4-6 again
    from step_3 in a fresh trainer, held to the uninterrupted run
@@ -48,22 +61,19 @@
    are checked for every command, and the two kernels are held against
    their plain versions on one aligner step's inputs (render_pose's
    backward, the per-view branch).
-8. Holds every kernel against its plain PyTorch version on the inputs the
+9. Holds every kernel against its plain PyTorch version on the inputs the
    paths gave it (pixels at a threshold tie exempt, forward and backward;
    each backward run twice: equal bits, but for the dense list form, whose
    atomics add in an order that changes from run to run: its largest
-   run-to-run difference is logged), the dense kernels also in their table
-   form on the gathered lists of a training step, and the
+   run-to-run difference is logged), and the
    slices on the card against the same on the CPU at a small size (the
    rendered frame; the gradients of one packed training step; a dense
    training step, a densify round and the step after it).
-9. Times each kernel with CUDA events at the paths' shapes, the packed ones
+10. Times each kernel with CUDA events at the paths' shapes, the packed ones
    also at the same frame on 16x16 tiles and at bench.py::build's shapes
    (16x16 tiles, 4 views, 100k Gaussians), beside its plain version and its
-   bound; and, on a dense training step's lists, the table form the dense
-   kernels replace: the payload gather, the kernels on the table and the
-   gather's transpose.
-10. The at-spec quality run (casualhdrsplat_torch.quality_run, in this
+   bound.
+11. The at-spec quality run (casualhdrsplat_torch.quality_run, in this
    process): the reference's r05 fixture built on the card through
    build_fixture (the structured cloud of 30,000 surfels, 12 frames of
    800x800, 16 ground-truth views a frame, per-view binning at chunk 256,
@@ -76,15 +86,15 @@
    last eval of each rung beats its first in eval_psnr, and B1 and B2 were
    launched once per step; then both held against their plain versions on
    the last step's inputs.
-11. bench (casualhdrsplat_torch.bench.main at build()'s defaults: 100k
+12. bench (casualhdrsplat_torch.bench.main at build()'s defaults: 100k
    Gaussians, 800x800, 4 views, 16x16 tiles, chunk 128): its JSON line,
    B1 and B2 once per step.
-12. entry (casualhdrsplat_torch.entry.entry()): the blurred frame's shape
+13. entry (casualhdrsplat_torch.entry.entry()): the blurred frame's shape
    and range, B1 launched once.
-13. With --profile, prints the device time of a render_frame request, a
+14. With --profile, prints the device time of a render_frame request, a
    render_pose request and a training step by kernel (torch.profiler), on
    both paths.
-14. Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
+15. Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
    {...}}`.
 
 Any failed phase exits non-zero without the last line.  There is no CPU
@@ -94,6 +104,7 @@ fallback: without a CUDA device the script exits 2 at once.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import dataclasses
 import json
 import os
@@ -522,51 +533,6 @@ def measure_dense_backward(label, call, reps):
         **_list_meta(rows, ids, counts, statics))
 
 
-def table_form(call):
-    """The table form the list form replaces, on a dense training step's
-    captured B4 call: the payload gather into [tiles, capacity, 16]
-    (binning.gather_payload), B3 and B4 on the table and the gather's
-    transpose, CUDA-event times beside the list form's; and B4 on the table
-    held to its plain version with equal bits over two launches."""
-    import torch
-
-    from casualhdrsplat_torch.ops import binning, composite
-    from casualhdrsplat_torch.ops import rasterize_dense as rd
-
-    rows, ti, counts, out4, g4, statics, ids = call
-    v = statics.num_views
-    payload = rows.reshape(v, -1, binning.PAYLOAD_DIM).detach().requires_grad_(True)
-    tiles = binning.TileLists(ids.reshape(v, -1, ids.shape[1]), counts, None, None)
-    gather_ms = event_ms(lambda: binning.gather_payload(payload, tiles), 5)
-    table = binning.gather_payload(payload, tiles)
-    flat = table.reshape(ids.shape + (binning.PAYLOAD_DIM,))
-    d_table = rd.backward(flat.detach(), ti, counts, out4, g4, statics)
-    transpose_ms = event_ms(lambda: torch.autograd.grad(
-        table, payload, d_table.reshape(table.shape), retain_graph=True), 5)
-    flat = flat.detach()
-    del table, d_table
-    times = dict(
-        gather_ms=gather_ms, transpose_ms=transpose_ms,
-        table_fwd_ms=event_ms(lambda: rd.forward(flat, ti, counts, statics), 10),
-        table_bwd_ms=event_ms(lambda: rd.backward(flat, ti, counts, out4, g4, statics), 10),
-        list_fwd_ms=event_ms(lambda: rd.forward(rows, ti, counts, statics, ids), 10),
-        list_bwd_ms=event_ms(lambda: rd.backward(rows, ti, counts, out4, g4, statics, ids), 10))
-    log("dense table form vs list form, one training step's lists: " + json.dumps(times))
-    with torch.no_grad():
-        _, work = composite.composite_tiles_reference(flat, ti, counts, statics,
-                                                      return_work=True)
-    tt, p = ids.shape[0], statics.tile_h * statics.tile_w
-    measure_gradient(
-        "dense_train_step_table_form",
-        lambda g: rd.backward(flat, ti, counts, out4, g, statics),
-        lambda g: composite.composite_tiles_backward_reference(flat, ti, counts, out4, g,
-                                                               statics),
-        # each slot its own row of the table; the gradient table written once
-        g4, work, work.slots * USED_ROW_BYTES + 2 * tt * 4 + 2 * tt * 4 * p * 4
-        + flat.numel() * 4, p, 10,
-        tiles=tt, tile=f"{statics.tile_h}x{statics.tile_w}", capacity=ids.shape[1])
-
-
 def profile_window(name, fn, reps=3):
     """Device time by kernel over `reps` calls of fn() (torch.profiler),
     against the host-clock wall time of the same window."""
@@ -978,7 +944,6 @@ def dense_train_phase(device, dataset, rd):
     with torch.no_grad():
         measure_dense_forward("dense_train_step_forward", bwd_call[:3] + bwd_call[5:], 1,
                               reps=10)
-    table_form(bwd_call)
     del bwd_call
     if "--profile" in sys.argv[1:]:
         profile_window("dense_train_step", trainer.run_step)
@@ -1576,6 +1541,328 @@ def entry_phase(device, rp):
     return launches
 
 
+# -- the sharded path (parallel/) ------------------------------------------------
+
+# the meshes of the two-rank world: ranks share cuda:0 over gloo
+SHARDED_MESHES = ((1, 2), (2, 1))
+# the rank whose kernel calls are held against the plain versions (gauss
+# index 1 on (1, 2), data index 1 on (2, 1)), and its timing repetitions
+MEASURED_RANK, SHARDED_REPS = 1, 5
+
+
+def sharded_cfg(branch: str):
+    """ladder4 with density control off and per-view binning (the sharded
+    path bins per view whatever shared_binning says; its yardstick is the
+    one-device per-view branch), packed or on the dense path's lists."""
+    from casualhdrsplat_torch import config
+
+    cfg = config.PRESETS["ladder4"]()
+    cfg.densify.enabled = False
+    cfg.densify.grad_threshold = DENSE_GRAD_THRESHOLD
+    cfg.eval_every = 0
+    cfg.data.eval_every = 0
+    cfg.model.rasterize = dataclasses.replace(cfg.model.rasterize, shared_binning=False)
+    if branch == "dense":
+        cfg.model = dense_model_cfg(cfg.model)
+    return cfg
+
+
+def flat_grads(trainer, grads, g2d, gather=None):
+    """{group path: gradient on the CPU}, the store's gathered by `gather`
+    on a mesh."""
+    from casualhdrsplat_torch.train import optim
+
+    out = {}
+    for path, label, _ in optim.labelled_leaves(trainer.params):
+        if label == "frozen":
+            continue
+        g = optim.tree_get(grads, path)
+        out["/".join(path)] = (gather(g) if gather and path[0] == "gaussians" else g).cpu()
+    out["means2d_offset"] = (gather(g2d) if gather else g2d).cpu()
+    return out
+
+
+def collective_lines(stats, steps: int = 1):
+    """One log line per collective: calls, MB and host ms per step."""
+    return [f"    {name}: {c / steps:.0f} calls, {b / steps / 1e6:.2f} MB, "
+            f"{t / steps * 1e3:.2f} ms host" for name, (c, b, t) in sorted(stats.items())]
+
+
+def sharded_world_of_one(device, dataset, rp):
+    """The sharded path on a world of one (nccl, mesh (1, 1)) against the
+    one-device trainer on the per-view branch from the same state: one
+    step's gradients, then a warm-up and TRAIN_STEPS steps on each.
+    Returns (B1, B2 launches of the sharded steps)."""
+    import torch
+    import torch.distributed as dist
+
+    from casualhdrsplat_torch.parallel.distributed import backend_for
+    from casualhdrsplat_torch.parallel.mesh import Mesh
+    from casualhdrsplat_torch.train.trainer import Trainer
+
+    cfg = sharded_cfg("packed")
+    with tempfile.TemporaryDirectory(prefix="chs-world-") as tmp:
+        dist.init_process_group(backend_for(device), init_method=f"file://{tmp}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            mesh = Mesh(1, 1)
+            one = Trainer(cfg, dataset, device=device)
+            sharded = Trainer(cfg, dataset, device=device, mesh=mesh)
+            frame = int(one.dataset.train_indices[1])
+            loss_a, _, grads_a, g2d_a = one.loss_and_grads(frame)
+            loss_b, _, grads_b, g2d_b = sharded.loss_and_grads(frame)
+            a, b = flat_grads(one, grads_a, g2d_a), flat_grads(sharded, grads_b, g2d_b)
+            if abs(float(loss_a) - float(loss_b)) > ATOL * abs(float(loss_a)):
+                raise AssertionError(f"mesh (1, 1): loss {float(loss_b)} against the one-device "
+                                     f"{float(loss_a)}")
+            worst = max(grads_close(f"mesh (1, 1) gradient {k}", b[k], a[k])
+                        / max(float(a[k].abs().max()), 1e-30) for k in a)
+            log(f"sharded, world of 1 (nccl, mesh (1, 1)): loss {float(loss_b):.6f} vs the "
+                f"one-device per-view {float(loss_a):.6f}; {len(a)} gradient groups agree, "
+                f"worst max abs err {worst:.3g} of the group's largest")
+            del grads_a, grads_b, a, b
+            one.run_step(), sharded.run_step()  # warm-up
+            walls = {"one-device": [], "mesh (1, 1)": []}
+            outs = {k: [] for k in walls}
+            mesh.stats.clear()
+            launches = (0, 0)
+            # the two trainers' steps alternate, so that a drift of the
+            # host's or the card's speed reaches both alike
+            for _ in range(TRAIN_STEPS):
+                for name, t in (("one-device", one), ("mesh (1, 1)", sharded)):
+                    before = rp.FWD_KERNEL.launches, rp.BWD_KERNEL.launches
+                    out, dt = timed(t.run_step)
+                    walls[name].append(dt)
+                    outs[name].append(out)
+                    if t is sharded:
+                        launches = (launches[0] + rp.FWD_KERNEL.launches - before[0],
+                                    launches[1] + rp.BWD_KERNEL.launches - before[1])
+            for step, (x, y) in enumerate(zip(outs["one-device"], outs["mesh (1, 1)"]), 2):
+                if not (np.isfinite(y["loss"]) and abs(x["loss"] - y["loss"])
+                        <= 1e-4 * abs(x["loss"]) and abs(x["psnr"] - y["psnr"]) <= 1e-3):
+                    raise AssertionError(f"mesh (1, 1) step {step}: {y} against {x}")
+            one_ms, mesh_ms = (np.median(walls[k]) * 1e3 for k in walls)
+            log(f"sharded steps, mesh (1, 1): median {mesh_ms:.2f} ms against the one-device "
+                f"per-view step's {one_ms:.2f} ms ({mesh_ms / one_ms:.3f}x); losses "
+                + ", ".join(f"{o['loss']:.6f}" for o in outs["mesh (1, 1)"])
+                + f"; launches over {TRAIN_STEPS} steps: B1 {launches[0]}, B2 {launches[1]}; "
+                f"walls in ms, alternating: " + json.dumps(
+                    {k: [round(w * 1e3, 2) for w in v] for k, v in walls.items()}))
+            for line in collective_lines(mesh.stats, TRAIN_STEPS):
+                log(line)
+            if launches != (TRAIN_STEPS, TRAIN_STEPS):
+                raise AssertionError("mesh (1, 1): B1 and B2 once per step")
+            if "--profile" in sys.argv[1:]:
+                profile_window("one-device per-view step", one.run_step)
+                profile_window("mesh (1, 1) step", sharded.run_step)
+            del one, sharded
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_rank(rank, device, dataset, cfgs, refs):
+    """One rank of the two-rank world (gloo, both ranks on cuda:0): on each
+    mesh of SHARDED_MESHES, one trainer; for each branch (its config
+    swapped in), one render_frame and one training step's gradients from
+    the initial state (rank 0 holds them against the one-device `refs`),
+    then a step on each branch, a densify round and a rebalance.  On
+    MEASURED_RANK, each mesh's first step of each branch is then held
+    against the plain versions of B1-B4 (`sharded_kernel_checks`).
+    Returns this rank's log lines, its launch counts on the path (the
+    comparison's launches left out) and {mesh: {kernel: max abs err}}."""
+    import torch
+
+    from casualhdrsplat_torch.ops import rasterize_dense as rd
+    from casualhdrsplat_torch.ops import rasterize_packed as rp
+    from casualhdrsplat_torch.parallel import render as prender
+    from casualhdrsplat_torch.parallel import sharding
+    from casualhdrsplat_torch.parallel.mesh import Mesh
+    from casualhdrsplat_torch.train.trainer import Trainer
+
+    kernels = {"B1": rp.FWD_KERNEL, "B2": rp.BWD_KERNEL, "B3": rd.FWD_KERNEL,
+               "B4": rd.BWD_KERNEL}
+    # each branch's backward launcher, whose captured call also holds the
+    # forward's inputs
+    launchers = {"packed": (rp, "_backward_cuda"), "dense": (rd, "backward")}
+    for k in kernels.values():
+        k.launches = 0
+    lines, captured, errors = [], {}, {}
+    for shape in SHARDED_MESHES:
+        mesh = Mesh(*shape)
+        t = Trainer(copy.deepcopy(cfgs["packed"]), dataset, device=device, mesh=mesh)
+        frame = int(t.dataset.train_indices[1])
+        for branch in ("packed", "dense"):
+            tag = f"mesh {shape} {branch}"
+            t.cfg.model = cfgs[branch].model
+            ref = refs[branch]
+            with torch.no_grad():
+                out = prender.render_frame_sharded(t.params, t.scene, frame, t.cfg.model, mesh)
+            for name, img in (("blurred", out.blurred_ldr), ("hdr", out.sharp_hdr)):
+                err = float((img.cpu() - ref[name]).abs().max())
+                lines.append(f"{tag}: {name} max abs err {err} against one device")
+                if not torch.allclose(img.cpu(), ref[name], atol=ATOL, rtol=RTOL):
+                    raise AssertionError(f"{tag}: {name} disagrees with one device: {err}")
+            if int(out.aux.num_dropped) != ref["dropped"]:
+                raise AssertionError(f"{tag}: dropped {int(out.aux.num_dropped)} against "
+                                     f"{ref['dropped']}")
+            del out
+            mesh.stats.clear()
+            outs = []
+            calls, dt = timed(lambda: capture_calls(
+                *launchers[branch], lambda: outs.append(t.loss_and_grads(frame))))
+            (loss, _, grads, g2d), = outs
+            if rank == MEASURED_RANK:
+                captured[branch] = calls[0]
+            del calls
+            stats = dict(mesh.stats)
+            got = flat_grads(t, grads, g2d, lambda g: sharding.gather_leaf(g, mesh))
+            worst = max(grads_close(f"{tag} gradient {k}", got[k], ref["grads"][k])
+                        / max(float(ref["grads"][k].abs().max()), 1e-30) for k in got)
+            lines.append(f"{tag}: loss {float(loss):.6f} (one device {ref['loss']:.6f}), "
+                         f"{len(got)} gradient groups agree, worst {worst:.3g} of the "
+                         f"largest; loss and gradients {dt * 1e3:.1f} ms; collectives:")
+            lines += collective_lines(stats)
+            if abs(float(loss) - ref["loss"]) > ATOL * abs(ref["loss"]):
+                raise AssertionError(f"{tag}: loss {float(loss)} against {ref['loss']}")
+            del grads, g2d, got
+        for branch in ("packed", "dense"):  # a step of each: Adam on the blocks
+            t.cfg.model = cfgs[branch].model
+            step = t.run_step()
+            if not np.isfinite(step["loss"]):
+                raise AssertionError(f"mesh {shape} {branch}: step {step}")
+        report = t._densify(False)
+        before = t._shard_counts()
+        t._rebalance()
+        after = t._shard_counts()
+        lines.append(f"mesh {shape}: densify round cloned {int(report.num_cloned)}, split "
+                     f"{int(report.num_split)}, pruned {int(report.num_pruned)}, alive "
+                     f"{int(report.num_alive)}; blocks {before.tolist()} -> {after.tolist()} "
+                     f"after the rebalance")
+        if (after.sum() != before.sum() or np.ptp(after) > np.ptp(before)
+                or int(report.num_cloned + report.num_split) <= 0):
+            raise AssertionError(f"mesh {shape}: densify {report}, blocks {before} -> {after}")
+        del t
+        if rank == MEASURED_RANK:  # after the timed work: the other rank waits meanwhile
+            on_path = {name: k.launches for name, k in kernels.items()}
+            errors[str(shape)] = sharded_kernel_checks(shape, captured)
+            captured.clear()
+            for name, k in kernels.items():  # the comparison's launches do not count
+                k.launches = on_path[name]
+        torch.cuda.empty_cache()
+    return lines, {name: k.launches for name, k in kernels.items()}, errors
+
+
+def sharded_kernel_checks(shape, captured):
+    """B1-B4 against their plain versions on the inputs one rank's sharded
+    training step gave them: the packed stream with the rows of the other
+    rank's tiles empty (lo = hi = 0), and the dense branch's slice of
+    tiles with view-carrying indices v tiles_pad + g tpd + i.  Returns
+    {kernel: max abs err}; raises on a disagreement."""
+    import torch
+
+    tag = f"sharded_{shape[0]}x{shape[1]}_rank{MEASURED_RANK}"
+    packed, dense = captured["packed"], captured["dense"]
+    b2 = measure_backward(f"{tag}_packed_step", packed, reps=SHARDED_REPS)
+    b4 = measure_dense_backward(f"{tag}_dense_step", dense, reps=SHARDED_REPS)
+    with torch.no_grad():
+        b1 = measure_compositor(f"{tag}_packed_step_forward", packed[:3] + packed[6:], 1,
+                                reps=SHARDED_REPS)
+        b3 = measure_dense_forward(f"{tag}_dense_step_forward", dense[:3] + dense[5:], 1,
+                                   reps=SHARDED_REPS)
+    return {k: r["max_abs_err"] for k, r in (("B1", b1), ("B2", b2), ("B3", b3), ("B4", b4))}
+
+
+def sharded_world_of_two(device, dataset):
+    """The sharded path on two gloo ranks that share cuda:0, on the meshes
+    (1, 2) and (2, 1), against the one-device port on the card.  Their
+    times are not those of NCCL across cards.  Returns the launches of B1,
+    B2, B3 and B4 summed over the ranks."""
+    import torch
+
+    from casualhdrsplat_torch.models import image_formation as imf
+    from casualhdrsplat_torch.parallel import launch
+    from casualhdrsplat_torch.train.trainer import Trainer
+
+    # a store with free slots for the densify round: the dense trainer's
+    dataset = dataclasses.replace(dataset, points_xyz=dataset.points_xyz[:DENSE_TRAIN_POINTS],
+                                  points_rgb=dataset.points_rgb[:DENSE_TRAIN_POINTS])
+    refs, cfgs = {}, {b: sharded_cfg(b) for b in ("packed", "dense")}
+    t = Trainer(copy.deepcopy(cfgs["packed"]), dataset, device=device)
+    frame = int(t.dataset.train_indices[1])
+    for branch in ("packed", "dense"):
+        t.cfg.model = cfgs[branch].model
+        with torch.no_grad():
+            out = imf.render_frame(t.params, t.scene, frame, t.cfg.model)
+        dropped = int(out.aux.num_dropped) + (int(out.aux.num_clipped)
+                                              if branch == "packed" else 0)
+        loss, _, grads, g2d = t.loss_and_grads(frame)
+        refs[branch] = {"blurred": out.blurred_ldr.cpu(), "hdr": out.sharp_hdr.cpu(),
+                        "dropped": dropped, "loss": float(loss),
+                        "grads": flat_grads(t, grads, g2d)}
+        del out, grads, g2d
+    del t
+    torch.cuda.empty_cache()
+    results, seconds = timed(lambda: launch.spawn(sharded_rank, 2, "gloo", device.type,
+                                                  args=(dataset, cfgs, refs), timeout=600))
+    launches = {}
+    for rank, (lines, counts, errors) in enumerate(results):
+        for line in lines:
+            log(f"  rank {rank} {line}")
+        log(f"  rank {rank} launches: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        for shape, errs in errors.items():
+            log(f"  rank {rank} mesh {shape}: kernels against their plain versions on this "
+                f"rank's step, max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    checked = results[MEASURED_RANK][2]
+    if sorted(checked) != sorted(str(s) for s in SHARDED_MESHES):
+        raise AssertionError(f"rank {MEASURED_RANK} checked the kernels on {sorted(checked)}")
+    log(f"sharded, world of 2 (gloo, both ranks on cuda:0; not NCCL across cards): "
+        f"{seconds:.1f} s; launches over both ranks {launches}")
+    if any(v <= 0 for v in launches.values()):
+        raise AssertionError(f"the two-rank world did not launch every kernel: {launches}")
+    return launches
+
+
+def sharded_bench_and_dryrun(device):
+    """bench --sharded 1,1 (a world of one in this process) and
+    dryrun_multichip(2) on two gloo ranks sharing the card.  Returns the
+    launches of B1 and B2."""
+    import contextlib
+    import io
+
+    from casualhdrsplat_torch import bench, entry
+    from casualhdrsplat_torch.ops import rasterize_packed as rp
+
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL)
+    for k in kernels:
+        k.launches = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc, seconds = timed(lambda: bench.main(["--device", device.type, "--sharded", "1,1"]))
+    launches = [k.launches for k in kernels]
+    lines = text.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"bench --sharded 1,1: {line}")
+    result = json.loads(lines[-1])
+    steps = 1 + bench.N_WINDOWS * bench.ITERS_PER_WINDOW
+    log(f"bench --sharded 1,1: {steps} steps in {seconds:.1f} s with the build; launches "
+        f"B1 {launches[0]}, B2 {launches[1]}")
+    if rc != 0 or not result["value"] > 0 or launches != [steps, steps]:
+        raise AssertionError(f"bench --sharded 1,1: exit {rc}, {result}, launches {launches}")
+    results, seconds = timed(lambda: entry.dryrun_multichip(2, device=device.type,
+                                                            backend="gloo"))
+    for r in results:
+        launches = [a + b for a, b in zip(launches, r["launches"])]
+    log(f"dryrun_multichip(2), gloo on one card: {seconds:.1f} s; launches per rank "
+        f"{[r['launches'] for r in results]}")
+    if any(min(r["launches"]) <= 0 for r in results):
+        raise AssertionError("dryrun_multichip: a rank launched no B1 or B2")
+    return launches
+
+
 def kernel_entry(name, replaces, launches, res):
     return {
         "name": name,
@@ -1708,6 +1995,13 @@ def main() -> int:
     train_fwd_launches, train_bwd_launches, res_bwd = train_phase(device, dataset, rp)
     dense_fwd_launches, dense_bwd_launches, res_dense_bwd = dense_train_phase(
         device, dataset, rd)
+    torch.cuda.empty_cache()
+    one_fwd, one_bwd = sharded_world_of_one(device, dataset, rp)
+    two = sharded_world_of_two(device, dataset)
+    bench_dry = sharded_bench_and_dryrun(device)
+    sharded = {"B1": one_fwd + two["B1"] + bench_dry[0], "B2": one_bwd + two["B2"] + bench_dry[1],
+               "B3": two["B3"], "B4": two["B4"]}
+    log(f"sharded phase launches: {sharded}")
     cli_fwd_launches, cli_bwd_launches, _ = cli_phase(device, dataset, rp)
     del dataset
     quality_fwd_launches, quality_bwd_launches, _ = quality_phase(device, rp)
@@ -1723,15 +2017,15 @@ def main() -> int:
         # each forward kernel is launched by its path's requests and steps
         kernel_entry("rasterize_packed_fwd", "rasterize_packed.py:99",
                      serve_launches + train_fwd_launches + cli_fwd_launches
-                     + quality_fwd_launches + bench_fwd_launches + entry_fwd_launches,
-                     res_frame),
+                     + quality_fwd_launches + bench_fwd_launches + entry_fwd_launches
+                     + sharded["B1"], res_frame),
         kernel_entry("rasterize_packed_bwd", "rasterize_packed.py:201",
                      train_bwd_launches + cli_bwd_launches + quality_bwd_launches
-                     + bench_bwd_launches, res_bwd),
+                     + bench_bwd_launches + sharded["B2"], res_bwd),
         kernel_entry("rasterize_dense_fwd", "rasterize_pallas.py:104",
-                     dense_serve_launches + dense_fwd_launches, res_dense_fwd),
+                     dense_serve_launches + dense_fwd_launches + sharded["B3"], res_dense_fwd),
         kernel_entry("rasterize_dense_bwd", "rasterize_pallas.py:185",
-                     dense_bwd_launches, res_dense_bwd),
+                     dense_bwd_launches + sharded["B4"], res_dense_bwd),
     ]
     log(json.dumps({"kernels": kernels_line}))
     log(smi)  # as nvidia-smi gives them, on a line of its own

@@ -115,15 +115,13 @@ def test_synthetic_dataset_matches_jax():
 
 
 def test_config_tree_round_trip():
-    """TrainConfig: the reference's fields and defaults (but for its
-    `parallel` section), to_dict / from_dict, and the presets."""
+    """TrainConfig: the reference's fields and defaults, to_dict / from_dict,
+    and the presets."""
     d_t = t_config.to_dict(t_config.TrainConfig())
     d_j = j_config.to_dict(j_config.TrainConfig())
-    d_j.pop("parallel")
     assert d_t == d_j
     for name, make in t_config.PRESETS.items():
         d_t, d_j = t_config.to_dict(make()), j_config.to_dict(j_config.PRESETS[name]())
-        d_j.pop("parallel")
         assert d_t == d_j, name
     cfg = t_config.PRESETS["ladder3"]()
     cfg.optim.pose_b1 = 0.0

@@ -53,3 +53,22 @@ def test_cli_import_leaves_jax_out():
                        timeout=300, cwd=REPO_ROOT, env=env)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "[]"
+
+
+def test_parallel_import_leaves_jax_out():
+    """parallel/ (the mesh, the collectives, the sharded rasterizer, the
+    launcher) and the modules that reach it load without JAX."""
+    names = {os.path.relpath(p, REPO_ROOT) for p in _sources()}
+    parallel = {f"casualhdrsplat_torch/parallel/{m}.py" for m in
+                ("distributed", "mesh", "collectives", "sharding", "render", "launch")}
+    assert parallel <= names
+    code = ("import sys, casualhdrsplat_torch.parallel.render, "
+            "casualhdrsplat_torch.parallel.launch, casualhdrsplat_torch.parallel.sharding, "
+            "casualhdrsplat_torch.train.densify, casualhdrsplat_torch.entry, "
+            "casualhdrsplat_torch.bench; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in %r))" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=REPO_ROOT, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "[]"

@@ -1,7 +1,8 @@
 """The CUDA compositor kernels (csrc/rasterize_packed_fwd.cu and
 csrc/rasterize_packed_bwd.cu for the depth-sorted stream,
 csrc/rasterize_dense_fwd.cu and csrc/rasterize_dense_bwd.cu for the dense
-[tiles, capacity] lists, in their table and list forms) held against their
+[tiles, capacity] lists, read through an id table, a gathered table passed
+as lists on unique ids) held against their
 plain PyTorch versions on the card; and, around them, a checkpoint moving
 between the card and the CPU and one pose-aligner gradient on both.  Marked `cuda`: without a card the
 fixture skips every test here (the decision is made inside the fixture,
@@ -391,6 +392,20 @@ def _table_case(seed, tile_h, tile_w, ntx, nty, views, chunk, cap, device,
             torch.as_tensor(counts, dtype=torch.int32, device=device), statics)
 
 
+def _table_fwd(gathered, ti, counts, statics):
+    """Kernel B3 on a gathered table, passed as the list form on unique ids
+    (composite.table_as_lists): the kernels read lists through ids only."""
+    rows, ids, ti1, one_view = composite.table_as_lists(gathered, ti, statics)
+    return rd.forward(rows, ti1, counts, one_view, ids)
+
+
+def _table_bwd(gathered, ti, counts, out4, g4, statics):
+    """Kernel B4 on a gathered table as lists: the gradient laid out as the
+    table."""
+    rows, ids, ti1, one_view = composite.table_as_lists(gathered, ti, statics)
+    return rd.backward(rows, ti1, counts, out4, g4, one_view, ids).reshape(gathered.shape)
+
+
 DENSE_CASES = [
     (16, 16, 128, 1024),  # the dense path's shape: 256 pixels, 1 per thread
     (16, 128, 128, 256),  # the default tile: 2048 pixels, 8 per thread
@@ -399,7 +414,7 @@ DENSE_CASES = [
 
 
 def _dense_bwd_inputs(case, seed):
-    out4 = rd.forward(*case)
+    out4 = _table_fwd(*case)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     return out4, torch.randn(out4.shape, generator=gen).to(out4.device)
 
@@ -409,9 +424,9 @@ def test_dense_kernels_match_plain_versions(cuda, tile_h, tile_w, chunk, cap):
     case = _table_case(0, tile_h, tile_w, 3, 2, 2, chunk, cap, cuda)
     gathered, ti, counts, statics = case
     before = rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches
-    out = rd.forward(*case)
+    out = _table_fwd(*case)
     g4 = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
-    d = rd.backward(gathered, ti, counts, out, g4, statics)
+    d = _table_bwd(gathered, ti, counts, out, g4, statics)
     torch.cuda.synchronize()
     assert (rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
     ref = composite.composite_tiles_reference(*case)
@@ -435,11 +450,11 @@ def test_dense_backward_large_tile(cuda):
     out4, g4 = _dense_bwd_inputs(case, 3)
     torch.testing.assert_close(out4, composite.composite_tiles_reference(*case),
                                atol=1e-4, rtol=1e-4)
-    d = rd.backward(gathered, ti, counts, out4, g4, statics)
+    d = _table_bwd(gathered, ti, counts, out4, g4, statics)
     _assert_grad_close(d, composite.composite_tiles_backward_reference(
         gathered, ti, counts, out4, g4, statics))
     with pytest.raises(ValueError, match="exceeds the kernel"):
-        rd.forward(gathered, ti, counts, statics._replace(tile_h=64))
+        _table_fwd(gathered, ti, counts, statics._replace(tile_h=64))
 
 
 def test_dense_tile_indices_with_padded_stride(cuda):
@@ -450,26 +465,26 @@ def test_dense_tile_indices_with_padded_stride(cuda):
     order = torch.tensor([4, 0, 5, 2], device=cuda)
     ti_off = (order + 2 * stride).to(torch.int32)
     padded = statics._replace(tiles_per_view=stride)
-    out = rd.forward(gathered[order].contiguous(), ti_off, counts[order].contiguous(), padded)
-    whole = rd.forward(gathered, ti, counts, statics)
+    out = _table_fwd(gathered[order].contiguous(), ti_off, counts[order].contiguous(), padded)
+    whole = _table_fwd(gathered, ti, counts, statics)
     assert torch.equal(out, whole[order])
     g4 = torch.randn(whole.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
-    d = rd.backward(gathered[order].contiguous(), ti_off, counts[order].contiguous(), out,
-                    g4[order].contiguous(), padded)
-    assert torch.equal(d, rd.backward(gathered, ti, counts, whole, g4, statics)[order])
+    d = _table_bwd(gathered[order].contiguous(), ti_off, counts[order].contiguous(), out,
+                   g4[order].contiguous(), padded)
+    assert torch.equal(d, _table_bwd(gathered, ti, counts, whole, g4, statics)[order])
 
 
 def test_dense_backward_is_deterministic_and_overwrites(cuda):
-    """The table form adds once to each element of a destination the
-    launcher zeroes: two launches give the same bits, whatever the memory
-    held before."""
+    """Lists on unique ids (a table passed as lists) add once to each
+    element of a destination the launcher zeroes: two launches give the
+    same bits, whatever the memory held before."""
     case = _table_case(6, 16, 16, 3, 2, 2, 128, 512, cuda)
     gathered, ti, counts, statics = case
     out4, g4 = _dense_bwd_inputs(case, 7)
-    a = rd.backward(gathered, ti, counts, out4, g4, statics)
+    a = _table_bwd(gathered, ti, counts, out4, g4, statics)
     junk = torch.full_like(gathered, float("nan"))  # recycled by the allocator
     del junk
-    b = rd.backward(gathered, ti, counts, out4, g4, statics)
+    b = _table_bwd(gathered, ti, counts, out4, g4, statics)
     assert torch.equal(a, b) and torch.isfinite(b).all()
 
 
@@ -486,7 +501,7 @@ def test_dense_early_stop_leaves_later_chunks_zero(cuda):
     ref, work = composite.composite_tiles_reference(*case, return_work=True)
     torch.testing.assert_close(out4, ref, atol=1e-4, rtol=1e-4)
     assert work.slots < int(counts.sum())  # the stop skipped occupied chunks
-    d = rd.backward(gathered, ti, counts, out4, g4, statics)
+    d = _table_bwd(gathered, ti, counts, out4, g4, statics)
     d_ref = composite.composite_tiles_backward_reference(gathered, ti, counts, out4, g4,
                                                          statics)
     _assert_grad_close(d, d_ref)
@@ -521,15 +536,16 @@ def test_composite_tiles_function_on_card(cuda):
                 plus, minus = base.clone(), base.clone()
                 plus[tile, slot, col] += h
                 minus[tile, slot, col] -= h
-                fd = ((rd.forward(plus, ti, counts, statics)
-                       - rd.forward(minus, ti, counts, statics)) * g4).sum() / (2 * h)
+                fd = ((_table_fwd(plus, ti, counts, statics)
+                       - _table_fwd(minus, ti, counts, statics)) * g4).sum() / (2 * h)
                 assert abs(float(fd) - float(d[tile, slot, col])) <= 2e-2 * scale, (
                     tile, slot, col)
     with torch.inference_mode():
         again = composite.composite_tiles(base, statics, counts=counts)
     assert torch.equal(again, out.detach())
-    with pytest.raises(ValueError, match="counts outside"):
-        rd.forward(base, ti, counts + 40, statics)
+    # counts past the capacity are clamped in the kernel: the pad rows they
+    # add have zero opacity and change nothing
+    assert torch.equal(_table_fwd(base, ti, counts + 40, statics), out.detach())
 
 
 # -- the dense list form: payload rows through the id table -----------------
@@ -598,17 +614,17 @@ def test_dense_list_kernels_match_plain_versions(cuda, tile_h, tile_w, chunk, ca
 
 
 def test_dense_list_form_equals_table_form(cuda):
-    """The one kernel per direction on the two forms of the same lists:
-    equal bits forward; backward, the table form's gradient table scattered
-    into the rows agrees with the list form's atomics, and the table form
-    gives equal bits twice."""
+    """The kernels on the same lists read through the id table and gathered
+    into a table (passed on unique ids): equal bits forward; backward, the
+    table's gradient scattered into the rows agrees with the shared rows'
+    atomics, and the table's gives equal bits twice."""
     rows, ids, ti, counts, statics = _list_case(2, 16, 16, 3, 2, 2, 128, 1024, cuda)
     table, index, in_list = composite.gather_lists(rows, ids, ti, counts, statics)
     out = rd.forward(rows, ti, counts, statics, ids)
-    assert torch.equal(out, rd.forward(table, ti, counts, statics))
+    assert torch.equal(out, _table_fwd(table, ti, counts, statics))
     g4 = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
-    d_table = rd.backward(table, ti, counts, out, g4, statics)
-    assert torch.equal(d_table, rd.backward(table, ti, counts, out, g4, statics))
+    d_table = _table_bwd(table, ti, counts, out, g4, statics)
+    assert torch.equal(d_table, _table_bwd(table, ti, counts, out, g4, statics))
     scattered = torch.zeros_like(rows).index_add_(0, index[in_list], d_table[in_list])
     _assert_grad_close(rd.backward(rows, ti, counts, out, g4, statics, ids), scattered)
 
