@@ -23,6 +23,11 @@ mesh needs a launched world, one rank per card:
 
     torchrun --nproc_per_node=N -m casualhdrsplat_torch.bench --sharded D,G
 
+On the card the step (`build`'s) replays as one captured CUDA graph, the
+counterpart of the reference's `@jax.jit step` (utils/cuda_graphs.py: the
+first call is an eager warm-up, the second captures); `step.eager` is the
+same step without a graph, the yardstick.  `--sharded` runs eagerly.
+
 `--profile` then runs one more window under torch.profiler and prints,
 before the JSON line, its host wall and the card's busy time per step:
 where the card is busy for much less than the wall, the host sets the
@@ -46,6 +51,9 @@ import numpy as np
 import torch
 
 N_WINDOWS, ITERS_PER_WINDOW = 3, 12
+# untimed steps first: kernel loads and the allocator; on the card the
+# first is the graph's eager warm-up, the second its capture
+WARMUP_STEPS = 2
 
 
 def build(n_gaussians=100_000, size=800, n_virtual=4, chunk=128, stream_factor=6,
@@ -53,7 +61,9 @@ def build(n_gaussians=100_000, size=800, n_virtual=4, chunk=128, stream_factor=6
     """(step, args, pixels per step): `step(*args)` returns the loss and its
     gradients with respect to the means, log-scales, opacity logits,
     colours, CRF parameters (a dict) and log exposure time, for one blurred
-    frame of `n_virtual` views of a random cloud at size x size."""
+    frame of `n_virtual` views of a random cloud at size x size.  On a CUDA
+    device `step` replays a CUDA graph (its outputs are the graph's, which
+    the next call overwrites) and `step.eager` is the eager step."""
     from casualhdrsplat_torch.config import CRFConfig, RasterizeConfig
     from casualhdrsplat_torch.data import synthetic
     from casualhdrsplat_torch.geometry import spline
@@ -103,7 +113,33 @@ def build(n_gaussians=100_000, size=800, n_virtual=4, chunk=128, stream_factor=6
         crf_params,
         torch.tensor(0.0, device=device),
     )
-    return step, args, size * size * n_virtual
+    return _graphed(step, "bench's step"), args, size * size * n_virtual
+
+
+def _graphed(step, name):
+    """`step` replayed as a CUDA graph on CUDA tensors (captured over the
+    arguments of its second call; other arguments capture again), the
+    eager `step` elsewhere; `.eager` is the eager step."""
+    from casualhdrsplat_torch.utils import cuda_graphs
+
+    graphs = cuda_graphs.GraphCache()
+
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [t for k in sorted(tree) for t in flat(tree[k])]
+        if isinstance(tree, (tuple, list)):
+            return [t for x in tree for t in flat(x)]
+        return [tree] if isinstance(tree, torch.Tensor) else []
+
+    def graphed_step(*args):
+        leaves = flat(args)
+        if not leaves or not cuda_graphs.graphable(leaves[0].device):
+            return step(*args)
+        return graphs.get(None, leaves, lambda: cuda_graphs.GraphedCall(
+            lambda: step(*args), name))()
+
+    graphed_step.eager = step
+    return graphed_step
 
 
 def build_sharded(n_gaussians=100_000, size=800, n_virtual=4, mesh=None, device="cuda"):
@@ -256,7 +292,8 @@ def _run(step, step_args, pixels, device, report: bool, profile: bool = False) -
     """Warm up, time N_WINDOWS windows of ITERS_PER_WINDOW steps, print the
     JSON line when `report` (with `profile`, the profiled window's line
     before it)."""
-    loss, _ = step(*step_args)  # warm-up: kernel loads, allocator
+    for _ in range(WARMUP_STEPS):
+        loss, _ = step(*step_args)
     if not np.isfinite(float(loss)):
         raise RuntimeError(f"bench: non-finite warm-up loss {float(loss)}")
     rates = []

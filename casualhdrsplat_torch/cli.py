@@ -138,7 +138,8 @@ def cmd_eval(args):
 @torch.no_grad()
 def cmd_render(args):
     """Render novel views, deblurred frames, HDR frames, exposure sweeps,
-    blurred frames or depth maps from a checkpoint."""
+    blurred frames or depth maps from a checkpoint (on the card each render
+    replays a CUDA graph: `Trainer.renders`)."""
     from casualhdrsplat_torch.models import image_formation as imf
     from casualhdrsplat_torch.train import metrics as metrics_mod
 
@@ -176,18 +177,21 @@ def cmd_render(args):
               else torch.exp(torch.mean(t.params["log_exposures"])))
         viewmats = imf.poses_at(t.params, t.scene, times, cfg.model)
         for j in range(args.path_n):
-            img, _, _ = imf.render_pose(t.params, t.scene, viewmats[j], cfg.model, exposure=dt)
+            img, _, _ = t.renders.render_pose(t.params, t.scene, viewmats[j], cfg.model,
+                                              exposure=dt)
             _save(os.path.join(args.out, f"novel_{j:04d}.png"), _host(img))
         frames = []
 
     for i in frames:
+        # render_deblurred: one sharp view at the mid-exposure pose
         if args.mode == "deblur":
-            img, _, _ = imf.render_deblurred(t.params, t.scene, i, cfg.model)
+            img, _, _ = t.renders.render_pose(t.params, t.scene, _mid_pose(i), cfg.model,
+                                              exposure=imf.exposure_of(t.params, i))
             _save(os.path.join(args.out, f"deblur_{i:04d}.png"), _host(img))
         elif args.mode == "depth":
             # expected depth at the mid-exposure pose
-            depth, alpha, _ = imf.render_pose(t.params, t.scene, _mid_pose(i), cfg.model,
-                                              depth_output=True)
+            depth, alpha, _ = t.renders.render_pose(t.params, t.scene, _mid_pose(i),
+                                                    cfg.model, depth_output=True)
             d = _host(depth)
             np.save(os.path.join(args.out, f"depth_{i:04d}.npy"), d)
             cover = _host(alpha) > 1e-3
@@ -197,19 +201,20 @@ def cmd_render(args):
             _save(os.path.join(args.out, f"depth_{i:04d}.png"),
                   np.tile(vis[..., None], (1, 1, 3)))
         elif args.mode == "hdr":
-            img, _, _ = imf.render_deblurred(t.params, t.scene, i, cfg.model, hdr_output=True)
+            img, _, _ = t.renders.render_pose(t.params, t.scene, _mid_pose(i), cfg.model,
+                                              exposure=imf.exposure_of(t.params, i),
+                                              hdr_output=True)
             np.save(os.path.join(args.out, f"hdr_{i:04d}.npy"), _host(img))
             metrics_mod.save_hdr(os.path.join(args.out, f"hdr_{i:04d}.hdr"), _host(img))
         elif args.mode == "exposure-sweep":
             viewmat = _mid_pose(i)
             for j, dt in enumerate(np.geomspace(args.sweep_min, args.sweep_max, args.sweep_n)):
-                img, _, _ = imf.render_pose(t.params, t.scene, viewmat, cfg.model,
-                                            exposure=torch.tensor(dt, dtype=torch.float32,
-                                                                  device=dev))
+                img, _, _ = t.renders.render_pose(t.params, t.scene, viewmat, cfg.model,
+                                                  exposure=float(np.float32(dt)))
                 _save(os.path.join(args.out, f"sweep_{i:04d}_{j:02d}.png"), _host(img))
         else:  # blurred: reproduce the captured frame
-            out = imf.render_frame(t.params, t.scene, i, cfg.model)
-            _save(os.path.join(args.out, f"blur_{i:04d}.png"), _host(out.blurred_ldr))
+            blurred = t.renders.render_frame_blurred(t.params, t.scene, i, cfg.model)
+            _save(os.path.join(args.out, f"blur_{i:04d}.png"), _host(blurred))
     if args.gif and gif_frames:
         # PIL writes the GIF, the natural preview of a video method
         from PIL import Image

@@ -85,7 +85,7 @@ rasterize_packed_bwd_kernel(
     const float* __restrict__ stream, const int* __restrict__ row_lo,
     const int* __restrict__ row_hi, const int* __restrict__ row_order,
     const float* __restrict__ out4, const float* __restrict__ g4,
-    float* __restrict__ d_stream, int P, int tile_h, int tile_w, int ntx,
+    float* __restrict__ d_stream, int m, int P, int tile_h, int tile_w, int ntx,
     int tiles_per_view, int g, int sw_log2, float alpha_clip,
     float alpha_threshold, float eps) {
   constexpr int WARPS = THREADS / 32;
@@ -99,7 +99,9 @@ rasterize_packed_bwd_kernel(
   const int row = row_order[blockIdx.x];
   const int lo = row_lo[row];
   const int hi = row_hi[row];
-  if (hi <= lo) return;  // the whole CTA: an empty row owns no slot
+  // the whole CTA: an empty row, or one whose bounds leave the stream
+  // [0, m), owns no slot
+  if (hi <= lo || lo < 0 || hi > m) return;
   const int tile = row % tiles_per_view;
   const int ox = (tile % ntx) * tile_w;
   const int oy = (tile / ntx) * tile_h;
@@ -250,13 +252,13 @@ rasterize_packed_bwd_kernel(
 template <int PPT, int THREADS, int SUB>
 cudaError_t launch(const float* stream, const int* row_lo, const int* row_hi,
                    const int* row_order, const float* out4, const float* g4,
-                   float* d_stream, int num_rows, int threads, int P, int tile_h,
+                   float* d_stream, int num_rows, int m, int threads, int P, int tile_h,
                    int tile_w, int ntx, int tiles_per_view, int g, int sw_log2,
                    float alpha_clip, float alpha_threshold, float eps,
                    cudaStream_t cu_stream) {
   rasterize_packed_bwd_kernel<PPT, THREADS, SUB>
       <<<num_rows, threads, 0, cu_stream>>>(
-          stream, row_lo, row_hi, row_order, out4, g4, d_stream, P, tile_h,
+          stream, row_lo, row_hi, row_order, out4, g4, d_stream, m, P, tile_h,
           tile_w, ntx, tiles_per_view, g, sw_log2, alpha_clip, alpha_threshold,
           eps);
   return cudaGetLastError();
@@ -274,14 +276,14 @@ cudaError_t launch(const float* stream, const int* row_lo, const int* row_hi,
 extern "C" int chs_rasterize_packed_bwd(
     const float* stream, const int* row_lo, const int* row_hi,
     const int* row_order, const float* out4, const float* g4, float* d_stream,
-    int num_rows, int P, int tile_h, int tile_w, int ntx, int tiles_per_view,
+    int num_rows, int m, int P, int tile_h, int tile_w, int ntx, int tiles_per_view,
     int g, float alpha_clip, float alpha_threshold, float eps, void* cu_stream) {
   if (num_rows == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(cu_stream);
   int sw_log2, ppt, threads;
 #define CHS_LAUNCH(N, THREADS, SUB)                                            \
   return (int)launch<N, THREADS, SUB>(                                         \
-      stream, row_lo, row_hi, row_order, out4, g4, d_stream, num_rows,         \
+      stream, row_lo, row_hi, row_order, out4, g4, d_stream, num_rows, m,      \
       threads, P, tile_h, tile_w, ntx, tiles_per_view, g, sw_log2, alpha_clip, \
       alpha_threshold, eps, s)
   if (plan(tile_h, tile_w, 8, 8, &sw_log2, &ppt, &threads)) {

@@ -77,7 +77,7 @@ template <int PPT>
 __global__ void __launch_bounds__(kMaxWarps * 32) rasterize_packed_fwd_kernel(
     const float* __restrict__ stream, const int* __restrict__ row_lo,
     const int* __restrict__ row_hi, const int* __restrict__ row_order,
-    float* __restrict__ out, int P, int tile_h, int tile_w, int ntx,
+    float* __restrict__ out, int m, int P, int tile_h, int tile_w, int ntx,
     int tiles_per_view, int g, int sw_log2, float alpha_clip,
     float alpha_threshold, float eps) {
   extern __shared__ float4 smem[];
@@ -88,7 +88,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) rasterize_packed_fwd_kernel(
 
   const int row = row_order[blockIdx.x];
   const int lo = row_lo[row];
-  const int hi = row_hi[row];
+  // a row whose bounds leave the stream [0, m) composites nothing
+  const int hi = lo >= 0 && row_hi[row] <= m ? row_hi[row] : lo;
   const int tile = row % tiles_per_view;
   const int ox = (tile % ntx) * tile_w;
   const int oy = (tile / ntx) * tile_h;
@@ -188,7 +189,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) rasterize_packed_fwd_kernel(
 
 template <int PPT>
 cudaError_t launch(const float* stream, const int* row_lo, const int* row_hi,
-                   const int* row_order, float* out, int num_rows, int threads,
+                   const int* row_order, float* out, int num_rows, int m, int threads,
                    int P, int tile_h, int tile_w, int ntx, int tiles_per_view,
                    int g, int sw_log2, float alpha_clip, float alpha_threshold,
                    float eps, cudaStream_t cu_stream) {
@@ -200,7 +201,7 @@ cudaError_t launch(const float* stream, const int* row_lo, const int* row_hi,
     if (err != cudaSuccess) return err;
   }
   rasterize_packed_fwd_kernel<PPT><<<num_rows, threads, smem, cu_stream>>>(
-      stream, row_lo, row_hi, row_order, out, P, tile_h, tile_w, ntx,
+      stream, row_lo, row_hi, row_order, out, m, P, tile_h, tile_w, ntx,
       tiles_per_view, g, sw_log2, alpha_clip, alpha_threshold, eps);
   return cudaGetLastError();
 }
@@ -228,7 +229,7 @@ __global__ void slot_boxes_kernel(const float4* __restrict__ stream, const int* 
 // first.  row_order is a permutation of the rows.
 extern "C" int chs_rasterize_packed_fwd(
     const float* stream, const int* row_lo, const int* row_hi,
-    const int* row_order, float* out, int num_rows, int P, int tile_h,
+    const int* row_order, float* out, int num_rows, int m, int P, int tile_h,
     int tile_w, int ntx, int tiles_per_view, int g, float alpha_clip,
     float alpha_threshold, float eps, void* cu_stream) {
   if (num_rows == 0) return (int)cudaSuccess;
@@ -237,7 +238,7 @@ extern "C" int chs_rasterize_packed_fwd(
   if (!plan(tile_h, tile_w, kMaxWarps, 16, &sw_log2, &ppt, &threads))
     return (int)cudaErrorInvalidValue;
 #define CHS_LAUNCH(N)                                                          \
-  return (int)launch<N>(stream, row_lo, row_hi, row_order, out, num_rows,      \
+  return (int)launch<N>(stream, row_lo, row_hi, row_order, out, num_rows, m,   \
                         threads, P, tile_h, tile_w, ntx, tiles_per_view, g,    \
                         sw_log2, alpha_clip, alpha_threshold, eps, s)
   if (ppt == 1) CHS_LAUNCH(1);

@@ -52,13 +52,16 @@ def _tiny_setup(size=32, n_gaussians=96, n_frames=3, n_virtual=2, backend="auto"
 
 def entry(device="cuda"):
     """(fn, example_args): the forward step of the flagship model, the
-    blurred LDR frame of frame 1."""
+    blurred LDR frame of frame 1.  On the card `fn` replays a CUDA graph
+    (`image_formation.GraphedRenders`, captured on its second call), the
+    counterpart of the reference's jitted forward; it takes no gradient."""
     from casualhdrsplat_torch.models import image_formation as imf
 
     _, cfg, scene, params = _tiny_setup(device=device)
+    renders = imf.GraphedRenders()
 
     def forward_step(params, frame_id):
-        return imf.render_frame(params, scene, frame_id, cfg).blurred_ldr
+        return renders.render_frame_blurred(params, scene, frame_id, cfg)
 
     return forward_step, (params, 1)
 

@@ -148,7 +148,10 @@ def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # [0, 0, 0, 1] made on the device: no copy from the host (which a CUDA
+    # graph cannot hold)
+    bottom = torch.zeros(4, dtype=R.dtype, device=R.device)
+    bottom[3:].fill_(1.0)
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 

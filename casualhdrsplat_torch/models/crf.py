@@ -7,7 +7,9 @@ learned response a valid CRF by construction.  Applied pointwise to
 [..., 3] images.
 
 Kinds: "identity" (clip(E, 0, 1)), "gamma" (fixed gamma curve), "mlp"
-(learnable).
+(learnable).  The "mlp" chain runs as one fused pass
+(ops/crf_fused.py: kernel T1 on the card, its plain version and
+closed-form backward on the CPU).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from casualhdrsplat_torch.config import CRFConfig
+from casualhdrsplat_torch.ops import crf_fused
 
 Params = Dict[str, torch.Tensor]
 
@@ -88,17 +91,21 @@ def _prefit_to_gamma(params: Params, cfg: CRFConfig, steps: int = 1200) -> Param
 def apply(params: Params, hdr_exposed: torch.Tensor, cfg: CRFConfig) -> torch.Tensor:
     """Map exposed HDR radiance E = H * dt ([..., 3], linear) to LDR in
     [0, 1]."""
+    if cfg.kind == "mlp":
+        # _monotone_mlp(params, _norm_log(max(E, 0), cfg)), fused
+        return crf_fused.monotone_crf(
+            hdr_exposed, F.softplus(params["unit_k"]) * 20.0, params["unit_c"],
+            F.softplus(params["unit_w"]), F.softplus(params["gain"]), params["bias"],
+            cfg.log_min, cfg.log_max)
     e = torch.clamp(hdr_exposed, min=0.0)
     if cfg.kind == "identity":
         return torch.clamp(e, 0.0, 1.0)
-    if cfg.kind == "gamma":
-        # linear ramp below eps keeps the curve's slope finite at 0
-        y = torch.clamp(e, 0.0, 1.0)
-        eps = 1e-4
-        inv_g = 1.0 / cfg.gamma
-        safe = torch.clamp(y, min=eps)
-        return torch.where(y > eps, safe**inv_g, y * eps ** (inv_g - 1.0))
-    return _monotone_mlp(params, _norm_log(e, cfg))
+    # gamma: a linear ramp below eps keeps the curve's slope finite at 0
+    y = torch.clamp(e, 0.0, 1.0)
+    eps = 1e-4
+    inv_g = 1.0 / cfg.gamma
+    safe = torch.clamp(y, min=eps)
+    return torch.where(y > eps, safe**inv_g, y * eps ** (inv_g - 1.0))
 
 
 def response_curve(params: Params, cfg: CRFConfig, num: int = 256, device="cuda"):

@@ -30,6 +30,7 @@ from casualhdrsplat_torch.models import gaussians as gauss_mod
 from casualhdrsplat_torch.ops import binning
 from casualhdrsplat_torch.ops import rasterize as rast_mod
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
+from casualhdrsplat_torch.utils import cuda_graphs
 
 Params = Dict[str, object]
 
@@ -124,12 +125,21 @@ def poses_at(params: Params, scene: SceneStatic, times, cfg: ModelConfig):
     )
 
 
+def frame_entry(values: torch.Tensor, frame_id) -> torch.Tensor:
+    """values[frame_id]: `frame_id` an int, or an int64 device tensor of one
+    element (the trainer's frame buffer, the reference's traced frame_id),
+    read on the device without a host read."""
+    if isinstance(frame_id, torch.Tensor):
+        return values.index_select(0, frame_id.reshape(1))[0]
+    return values[frame_id]
+
+
 def exposure_of(params: Params, frame_id) -> torch.Tensor:
-    return torch.exp(params["log_exposures"][frame_id])
+    return torch.exp(frame_entry(params["log_exposures"], frame_id))
 
 
 def _virtual_viewmats(params, scene, frame_id, cfg: ModelConfig, n: int):
-    t_i = scene.timestamps[frame_id]
+    t_i = frame_entry(scene.timestamps, frame_id)
     dt = exposure_of(params, frame_id)
     if cfg.optimize_poses:
         return poses_at(params, scene, spline.sample_virtual_times(t_i, dt, n), cfg)
@@ -142,7 +152,7 @@ def shared_binning_demand(params: Params, scene: SceneStatic, frame_id, cfg: Mod
     max_per_view_demand, stream_budget).  shared_demand bins exactly the
     footprint _rasterize_packed_shared bins."""
     r = cfg.rasterize
-    t_i = scene.timestamps[frame_id]
+    t_i = frame_entry(scene.timestamps, frame_id)
     dt = exposure_of(params, frame_id)
     viewmats = poses_at(
         params, scene, spline.sample_virtual_times(t_i, dt, cfg.num_virtual_views), cfg
@@ -256,6 +266,90 @@ def render_pose(
     return crf_mod.apply(params["crf"], hdr[0] * dt, cfg.crf), alphas[0], aux
 
 
+def _tensors(tree):
+    """The tensors of a parameter tree or a scene, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, SceneStatic):
+        return [getattr(tree, f.name) for f in dataclasses.fields(tree)
+                if isinstance(getattr(tree, f.name), torch.Tensor)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+class GraphedRenders:
+    """`render_pose`, and the blurred frame of `render_frame`, for a server:
+    on a CUDA device each replays a CUDA graph under `torch.no_grad()`
+    (utils/cuda_graphs.py), one per static key (for `render_pose`:
+    hdr_output, depth_output, the SH degree and the config), captured on
+    the key's second call after an eager warm-up; on another device the
+    eager functions run.  The pose, exposure and frame are copied into
+    static device buffers before a replay, and the outputs are copied out
+    of the graph's before they return: the next replay overwrites them.  A
+    graph is captured again when the parameters or the scene are other
+    tensors than at its capture (a trainer's Adam writes them in place, its
+    density control too).  A caller that trains meanwhile holds the
+    trainer's lock around a call, as around the eager render."""
+
+    def __init__(self):
+        self._graphs = {}
+        self._buffers = {}
+
+    def _buffer(self, name, like: torch.Tensor, dtype=torch.float32):
+        key = (name, like.device)
+        if key not in self._buffers:
+            shape = {"viewmat": (4, 4)}.get(name, ())
+            with torch.inference_mode(False):  # written again outside a caller's mode
+                self._buffers[key] = torch.zeros(shape, dtype=dtype, device=like.device)
+        return self._buffers[key]
+
+    def _replay(self, key, name, params, scene, make):
+        cache = self._graphs.setdefault(key[:-1], cuda_graphs.GraphCache())
+        inputs = _tensors(params) + _tensors(scene)
+        return cache.get(key, inputs, lambda: cuda_graphs.GraphedCall(
+            make, name, capture_error_mode="thread_local"))()
+
+    @torch.no_grad()
+    def render_pose(self, params: Params, scene: SceneStatic, viewmat: torch.Tensor,
+                    cfg: ModelConfig, exposure=None, hdr_output: bool = False,
+                    depth_output: bool = False, sh_degree: Optional[int] = None):
+        """`render_pose(...)`: (image, alpha, aux), copies."""
+        if not cuda_graphs.graphable(viewmat.device):
+            return render_pose(params, scene, viewmat, cfg, exposure=exposure,
+                               hdr_output=hdr_output, depth_output=depth_output,
+                               sh_degree=sh_degree)
+        vm = self._buffer("viewmat", viewmat)
+        dt = self._buffer("exposure", viewmat)
+        vm.copy_(viewmat)
+        if isinstance(exposure, torch.Tensor):
+            dt.copy_(exposure)
+        else:
+            dt.fill_(1.0 if exposure is None else exposure)
+        key = (hdr_output, depth_output, sh_degree, repr(cfg))
+        img, alpha, aux = self._replay(
+            key, f"render_pose (hdr {hdr_output}, depth {depth_output})", params, scene,
+            lambda: render_pose(params, scene, vm, cfg, exposure=dt, hdr_output=hdr_output,
+                                depth_output=depth_output, sh_degree=sh_degree))
+        return img.clone(), alpha.clone(), rast_mod.RasterizeAux(*(
+            t.clone() if isinstance(t, torch.Tensor) else t for t in aux))
+
+    @torch.no_grad()
+    def render_frame_blurred(self, params: Params, scene: SceneStatic, frame_id,
+                             cfg: ModelConfig, sh_degree: Optional[int] = None):
+        """`render_frame(...).blurred_ldr`, a copy."""
+        if not cuda_graphs.graphable(scene.timestamps.device):
+            return render_frame(params, scene, frame_id, cfg, sh_degree=sh_degree).blurred_ldr
+        fid = self._buffer("frame", scene.timestamps, torch.int64)
+        if isinstance(frame_id, torch.Tensor):
+            fid.copy_(frame_id)
+        else:
+            fid.fill_(frame_id)
+        key = ("frame", sh_degree, repr(cfg))
+        return self._replay(
+            key, "render_frame", params, scene,
+            lambda: render_frame(params, scene, fid, cfg, sh_degree=sh_degree).blurred_ldr,
+        ).clone()
+
+
 def render_deblurred(
     params: Params,
     scene: SceneStatic,
@@ -268,7 +362,7 @@ def render_deblurred(
     """Deblur a training frame: one sharp render at the mid-exposure pose,
     tone-mapped once.  `exposure` overrides the frame's learned exposure."""
     dt = exposure_of(params, frame_id) if exposure is None else exposure
-    t_mid = scene.timestamps[frame_id] + 0.5 * dt
+    t_mid = frame_entry(scene.timestamps, frame_id) + 0.5 * dt
     viewmat = poses_at(params, scene, t_mid.reshape(1), cfg)[0]
     return render_pose(params, scene, viewmat, cfg, exposure=dt,
                        hdr_output=hdr_output, sh_degree=sh_degree)

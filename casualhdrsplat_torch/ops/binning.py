@@ -277,7 +277,10 @@ def waterfill_segments(seg_len: torch.Tensor, budget: int):
     rem = (t - torch.arange(t, device=dev)).to(_I32)
     c_i = torch.div(budget - csum0, rem, rounding_mode="floor")
     trunc = c_i < s  # tile i cannot be kept whole
-    cap = torch.where(trunc.any(), c_i[torch.argmax(trunc.to(_I32))], budget)
+    # c_i at the first truncated tile, gathered on the device (indexing by a
+    # 0-d tensor would read it on the host)
+    first = c_i.gather(0, torch.argmax(trunc.to(_I32)).reshape(1))[0]
+    cap = torch.where(trunc.any(), first, budget)
     seg_c = torch.minimum(seg_len, cap).to(_I32)
     starts_c = torch.cat([zero, torch.cumsum(seg_c, 0).to(_I32)])
     return seg_c, starts_c

@@ -28,6 +28,14 @@ NVCC_FLAGS = (
 )
 # `#include "name"`: a header of csrc/, found beside the source by nvcc
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
+# Every kernel's launch counter (an object with an int `launches`), in the
+# order the kernels were defined: utils/cuda_graphs.py adds a captured
+# graph's launches to them on each replay.
+COUNTERS: list = []
+
+
+def register_counter(counter) -> None:
+    COUNTERS.append(counter)
 
 
 def find_nvcc() -> str:
@@ -86,6 +94,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        register_counter(self)
         self.library_path: Path | None = None
         self._fn = None
         self._lock = threading.Lock()

@@ -56,13 +56,13 @@ _REFERENCE_BWD_ROW_BATCH = 128
 FWD_KERNEL = CudaKernel(
     "rasterize_packed_fwd.cu",
     "chs_rasterize_packed_fwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
     + [ctypes.c_void_p],
 )
 BWD_KERNEL = CudaKernel(
     "rasterize_packed_bwd.cu",
     "chs_rasterize_packed_bwd",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
     + [ctypes.c_void_p],
 )
 # The kernels' own slot box (tile_boxes.cuh) launched alone, for tests.
@@ -75,12 +75,18 @@ BOX_KERNEL = CudaKernel(
 EMPTY_BOX = (32767, -1, 32767, -1)
 
 
-def row_windows(row_lo: torch.Tensor, row_hi: torch.Tensor, chunk: int):
+def row_windows(row_lo: torch.Tensor, row_hi: torch.Tensor, chunk: int, m=None):
     """(first block, window count) of every row: the blocks of G stream
-    positions that overlap [lo, hi).  Empty rows have no window."""
+    positions that overlap [lo, hi).  Empty rows have no window, and
+    neither has a row whose bounds leave a stream of `m` rows (when given):
+    the kernels composite such a row as empty, which needs no host read to
+    check the bounds."""
     lo, hi = row_lo.long(), row_hi.long()
     first = lo // chunk
-    count = torch.where(hi > lo, (hi - 1) // chunk - first + 1, 0)
+    live = hi > lo
+    if m is not None:
+        live = live & (lo >= 0) & (hi <= m)
+    count = torch.where(live, (hi - 1) // chunk - first + 1, 0)
     return first, count
 
 
@@ -192,15 +198,13 @@ def _forward_cuda(stream_payload, row_lo, row_hi, order, statics: CompositeStati
     if not (stream_payload.is_contiguous() and row_lo.is_contiguous()
             and row_hi.is_contiguous()):
         raise ValueError("composite_stream takes contiguous tensors")
-    m = stream_payload.shape[0]
     r = row_lo.shape[0]
-    if r and bool(((row_lo < 0) | (row_hi > m) | (row_hi < row_lo)).any()):
-        raise ValueError("row bounds outside the stream")
     out = torch.empty((r + 1, 4, p), dtype=torch.float32, device=stream_payload.device)
     out[r].zero_()
     FWD_KERNEL(
         stream_payload.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(), order.data_ptr(),
-        out.data_ptr(), r, *_kernel_args(statics, stream_payload.device),
+        out.data_ptr(), r, stream_payload.shape[0],
+        *_kernel_args(statics, stream_payload.device),
     )
     return out
 
@@ -217,7 +221,7 @@ def _backward_cuda(stream_payload, row_lo, row_hi, order, out4, g4,
     d_stream = torch.zeros_like(stream_payload)
     BWD_KERNEL(
         stream_payload.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(), order.data_ptr(),
-        out4.data_ptr(), g4.data_ptr(), d_stream.data_ptr(), r,
+        out4.data_ptr(), g4.data_ptr(), d_stream.data_ptr(), r, stream_payload.shape[0],
         *_kernel_args(statics, stream_payload.device),
     )
     return d_stream
@@ -293,7 +297,7 @@ def composite_stream_reference(
     dev = stream_payload.device
     r = row_lo.shape[0]
     out = torch.zeros((r + 1, 4, p), dtype=torch.float32, device=dev)
-    first, count = row_windows(row_lo, row_hi, g)
+    first, count = row_windows(row_lo, row_hi, g, stream_payload.shape[0])
     lo, hi = row_lo.long(), row_hi.long()
     offs = torch.arange(g, device=dev)
     slots = torch.zeros((), dtype=torch.int64, device=dev)
@@ -357,7 +361,7 @@ def composite_stream_backward_reference(
     dev = stream_payload.device
     r = row_lo.shape[0]
     d_stream = torch.zeros_like(stream_payload)
-    first, count = row_windows(row_lo, row_hi, g)
+    first, count = row_windows(row_lo, row_hi, g, stream_payload.shape[0])
     lo, hi = row_lo.long(), row_hi.long()
     offs = torch.arange(g, device=dev)
     for start in range(0, r, _REFERENCE_BWD_ROW_BATCH):

@@ -49,26 +49,35 @@ class AdcState(NamedTuple):
         )
 
 
+def grad_scale(image_size: Tuple[int, int], device="cuda") -> torch.Tensor:
+    """[w/2, h/2]: the factor `accumulate` takes the pixel-space gradient to
+    the NDC-half-extent convention with.  A training loop makes it once:
+    made from Python numbers, it is a copy from the host."""
+    w, h = image_size
+    return torch.tensor([0.5 * w, 0.5 * h], dtype=torch.float32, device=device)
+
+
 def accumulate(
     state: AdcState,
     means2d_grad: torch.Tensor,
     radii: torch.Tensor,
     image_size: Optional[Tuple[int, int]] = None,
+    scale: Optional[torch.Tensor] = None,
 ) -> AdcState:
     """Update the per-Gaussian statistics after one training step.
 
     means2d_grad: [N,2] pixel-space d loss / d means2d; radii: [V,N] (0
     where culled); image_size: (width, height) scales the pixel-space
     gradient by [w/2, h/2] to the NDC-half-extent convention the lineage's
-    `grad_threshold` constant assumes.
+    `grad_threshold` constant assumes; `scale`, `grad_scale(image_size)`
+    made once, does the same without a copy from the host.
     """
     r = radii.amax(0)
     visible = r > 0
-    if image_size is not None:
-        w, h = image_size
-        means2d_grad = means2d_grad * torch.tensor(
-            [0.5 * w, 0.5 * h], dtype=means2d_grad.dtype, device=means2d_grad.device
-        )
+    if scale is None and image_size is not None:
+        scale = grad_scale(image_size, means2d_grad.device)
+    if scale is not None:
+        means2d_grad = means2d_grad * scale.to(means2d_grad.dtype)
     g = torch.linalg.norm(means2d_grad, dim=-1)
     return AdcState(
         grad_accum=state.grad_accum + torch.where(visible, g, 0.0),

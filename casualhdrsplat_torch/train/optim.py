@@ -12,6 +12,14 @@ never changes.
 `Optimizer.update` writes the parameters and the moments in place (the
 reference returns new trees): at 131,072 Gaussians the SH coefficients and
 their two moments are the largest tensors of a training process.
+
+The learning rates and the bias corrections are evaluated on the device,
+in float32, from a device copy of the update count, as optax does inside
+the reference's jitted step: a step captured as a CUDA graph
+(utils/cuda_graphs.py) then reads the count from its buffer, where a
+Python number would be frozen into the graph.  `state["count"]` stays the
+host's count (checkpoints, the trainer's bookkeeping); `Optimizer.apply`
+takes the device count, `update` fills one from the host count.
 """
 
 from __future__ import annotations
@@ -22,7 +30,10 @@ import torch
 
 from casualhdrsplat_torch.config import OptimConfig
 
-Schedule = Union[float, Callable[[int], float]]
+# A constant, or a function of the count of updates already made: a
+# Python int gives a Python float (evaluated in float32, as on the device),
+# an int32 count tensor a float32 tensor on its device.
+Schedule = Union[float, Callable]
 
 _GAUSSIAN_GROUPS = {
     "means": "means",
@@ -70,13 +81,26 @@ def tree_set(tree, path, value) -> None:
     tree[path[-1]] = value
 
 
+def _schedule(fn) -> Schedule:
+    """A schedule from `fn`, a function of an int32 count tensor."""
+
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            return fn(count)
+        return float(fn(torch.tensor(count, dtype=torch.int32)))
+
+    return schedule
+
+
 def _exp_sched(init: float, final: float, steps: int) -> Schedule:
-    """Exponential decay init -> final over `steps` updates; a zero init
-    freezes the group."""
+    """Exponential decay init -> final over `steps` updates
+    (optax.exponential_decay, in float32); a zero init freezes the
+    group."""
     if init <= 0.0:
         return 0.0
     rate = final / init
-    return lambda count: init if count <= 0 else init * rate ** (count / steps)
+    return _schedule(
+        lambda count: torch.where(count <= 0, init, init * torch.pow(rate, count / steps)))
 
 
 def pose_schedule(cfg: OptimConfig) -> Schedule:
@@ -94,7 +118,8 @@ def pose_schedule(cfg: OptimConfig) -> Schedule:
     if warmup > 0:
         decay = base
         # after the warm-up the decay sees count - warmup
-        base = lambda count: 0.0 if count < warmup else decay(count - warmup)
+        base = _schedule(
+            lambda count: torch.where(count < warmup, 0.0, decay(count - warmup)))
     if cfg.pose_lr_rewarm_step > 0:
         # A boundary at or inside the warm-up window would give the
         # restarted branch a nonzero lr on steps the warm-up should freeze.
@@ -106,8 +131,8 @@ def pose_schedule(cfg: OptimConfig) -> Schedule:
         boundary, before = cfg.pose_lr_rewarm_step, base
         # past the boundary, the schedule as if the warm-up had just ended
         # `count - boundary` updates ago
-        return lambda count: (before(count) if count < boundary
-                              else before(warmup + (count - boundary)))
+        return _schedule(lambda count: torch.where(
+            count < boundary, before(count), before(warmup + (count - boundary))))
     return base
 
 
@@ -118,6 +143,11 @@ class _Group:
     def lr_at(self, count: int) -> float:
         return float(self.lr(count)) if callable(self.lr) else float(self.lr)
 
+    def step_scale(self, count: torch.Tensor):
+        """-lr at the device count: a float32 tensor, or a Python float
+        for a constant rate (optax's scale(-lr))."""
+        return -self.lr(count) if callable(self.lr) else -float(self.lr)
+
 
 class Optimizer:
     """Adam per parameter group (b2 = 0.999, eps = 1e-15, bias-corrected,
@@ -125,6 +155,14 @@ class Optimizer:
 
     def __init__(self, groups: Dict[str, _Group]):
         self.groups = groups
+        self._counts: Dict[torch.device, torch.Tensor] = {}
+
+    def count_buffer(self, device) -> torch.Tensor:
+        """This optimizer's int32 count buffer on `device`."""
+        device = torch.device(device)
+        if device not in self._counts:
+            self._counts[device] = torch.zeros((), dtype=torch.int32, device=device)
+        return self._counts[device]
 
     def init(self, params: Dict[str, Any]) -> Dict[str, Any]:
         state: Dict[str, Any] = {"count": 0, "mu": {"crf": {}}, "nu": {"crf": {}}}
@@ -142,25 +180,42 @@ class Optimizer:
         """One Adam update of every floating leaf, in place: `params` and
         the moments of `state` are written; the returned state is `state`
         with its count raised by one."""
-        count = state["count"]
+        leaf = next(iter(params["gaussians"].values()))
+        count = self.count_buffer(leaf.device).fill_(state["count"])
+        self.apply(grads, state, params, count)
+        state["count"] += 1
+        return state
+
+    @torch.no_grad()
+    def apply(self, grads, state, params, count: torch.Tensor) -> None:
+        """The device half of `update`: one Adam update of every floating
+        leaf at the int32 device `count` of updates already made (the
+        schedules' argument; the bias corrections take count + 1), with no
+        host read and no Python number that changes from step to step.
+        Leaves `state["count"]` to the caller."""
+        t = (count + 1).float()
+        corrections = {}
         for path, label, leaf in labelled_leaves(params):
             if label == "frozen":
                 continue
             group = self.groups[label]
+            if label not in corrections:
+                # optax's bias_correction: 1 - b ** count, in float32
+                corrections[label] = (1.0 - torch.pow(group.b1, t), 1.0 - torch.pow(_ADAM_B2, t),
+                                      group.step_scale(count))
+            bc1, bc2, scale = corrections[label]
             grad = tree_get(grads, path)
             mu, nu = tree_get(state["mu"], path), tree_get(state["nu"], path)
             mu.mul_(group.b1).add_(grad, alpha=1.0 - group.b1)
             nu.mul_(_ADAM_B2).addcmul_(grad, grad, value=1.0 - _ADAM_B2)
-            mu_hat = mu / (1.0 - group.b1 ** (count + 1))
-            nu_hat = nu / (1.0 - _ADAM_B2 ** (count + 1))
-            step = mu_hat.div_(nu_hat.sqrt_().add_(_ADAM_EPS)).mul_(-group.lr_at(count))
+            mu_hat = mu / bc1
+            nu_hat = nu / bc2
+            step = mu_hat.div_(nu_hat.sqrt_().add_(_ADAM_EPS)).mul_(scale)
             if group.trans_scale != 1.0:
                 # a per-half learning rate: columns 3:6 of [M, 6] knot
                 # deltas are the translation
                 step[..., 3:] *= group.trans_scale
             leaf.add_(step)
-        state["count"] = count + 1
-        return state
 
 
 def make_optimizer(cfg: OptimConfig, scene_extent: float = 1.0) -> Optimizer:

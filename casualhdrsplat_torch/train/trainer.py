@@ -23,12 +23,28 @@ and the replicated leaves alike, density control runs on each block
 rank draws the same frames and reads its scalars in the same order, so the
 collectives meet.
 
+On one CUDA device (no mesh) the step (loss, backward, Adam, the ADC
+statistics and the scalar stack) replays as one captured CUDA graph, the
+counterpart of the reference's jitted `_train_step` (utils/cuda_graphs.py):
+one graph per static key (the SH degree and the configs it bakes in), its
+numbers that change from step to step (the frame, the coarse-to-fine
+sigma, the update count) read from device buffers filled before each
+replay.  The first step of a key runs eagerly (the warm-up), the second
+captures.  Density control, the opacity reset and the rebalance run
+eagerly between replays, as the reference runs them as programs of their
+own, and write the store, its moments and statistics in place, so the
+graph keeps reading the tensors it was captured with; anything that
+rebinds them (`load`, a caller's assignment) makes the next step capture
+again.  `run_step_eager` is the same step without a graph: the yardstick,
+and the path on the CPU and on a mesh.
+
 `save` writes the reference's checkpoint payload plus what a continuation
 needs to match an uninterrupted run bit for bit, which the reference
 redraws from its seed instead: the split-noise generator, the frame
 sampler and the oversized-splat watchdog.  `lock` is held across a step,
 so that a reader on another thread (the viewer) never sees parameters
-that Adam is halfway through writing in place.
+that Adam is halfway through writing in place.  `renders` serves
+`render_pose` (the viewer, the command line) as CUDA graphs on the card.
 """
 
 from __future__ import annotations
@@ -62,6 +78,7 @@ from casualhdrsplat_torch.train import checkpoint as ckpt_mod
 from casualhdrsplat_torch.train import densify as densify_mod
 from casualhdrsplat_torch.train import metrics as metrics_mod
 from casualhdrsplat_torch.train import optim as optim_mod
+from casualhdrsplat_torch.utils import cuda_graphs
 
 
 class Trainer:
@@ -123,6 +140,14 @@ class Trainer:
         self.logger: Optional[metrics_mod.MetricsLogger] = None
         self._image_diag = float(np.hypot(self.dataset.width, self.dataset.height))
         self.lock = threading.Lock()
+        # the step's inputs that change from step to step, as device
+        # buffers (the reference's traced frame_id and blur_sigma)
+        self._frame_buf = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._sigma_buf = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._adc_scale = densify_mod.grad_scale((self.dataset.width, self.dataset.height),
+                                                 self.device)
+        self._step_graphs = cuda_graphs.GraphCache()
+        self.renders = imf.GraphedRenders()
 
     def _capacity(self) -> int:
         """Slots this trainer holds: the store, or its block on a mesh."""
@@ -242,10 +267,10 @@ class Trainer:
         return imf.render_frame(p, self.scene, frame_id, self.cfg.model, sh_degree=sh_degree,
                                 means2d_offset=offset)
 
-    def _loss(self, p, offset, frame_id: int, blur_sigma, sh_degree: int):
+    def _loss(self, p, offset, frame_id, blur_sigma, sh_degree: int):
         """The training objective on one frame: (loss, aux)."""
         cfg = self.cfg
-        target = self.images[frame_id]
+        target = imf.frame_entry(self.images, frame_id)
         out = self._render_frame(p, frame_id, sh_degree, offset)
         pred, tgt = out.blurred_ldr, target
         if cfg.loss.coarse_to_fine_steps > 0:
@@ -305,20 +330,21 @@ class Trainer:
         g2d = found[-1] if found[-1] is not None else torch.zeros_like(offset)
         return loss.detach(), aux, grads, g2d
 
-    def _train_step(self, frame_id: int, blur_sigma, sh_degree: int) -> torch.Tensor:
-        """Loss, backward, Adam on the floating leaves, ADC statistics.
-        Returns one fused scalar vector [loss, psnr, dropped, clipped], so
-        that run_step reads the device once."""
+    def _train_step(self, frame_id, blur_sigma, sh_degree: int) -> torch.Tensor:
+        """Loss, backward, Adam on the floating leaves (at the optimizer's
+        device count), ADC statistics, written in place.  Returns one fused
+        scalar vector [loss, psnr, dropped, clipped], so that run_step reads
+        the device once.  With `frame_id` and `blur_sigma` device tensors
+        it makes no host read: the body of the captured step."""
         loss, aux, grads, g2d = self.loss_and_grads(frame_id, blur_sigma, sh_degree)
-        self.opt_state = self.opt.update(grads, self.opt_state, self.params)
+        self.opt.apply(grads, self.opt_state, self.params, self.opt.count_buffer(self.device))
         radii = aux["radii"]
         if self.mesh is not None:  # the projection of the whole store: this block's
             radii = radii[:, sharding.block(radii.shape[1], self.mesh)]
         with torch.no_grad():
-            self.adc = densify_mod.accumulate(
-                self.adc, g2d, radii,
-                image_size=(self.dataset.width, self.dataset.height),
-            )
+            adc = densify_mod.accumulate(self.adc, g2d, radii, scale=self._adc_scale)
+            for dst, src in zip(self.adc, adc):
+                dst.copy_(src)
             return torch.stack([
                 loss, aux["psnr"],
                 torch.as_tensor(aux["num_dropped"], device=self.device).float(),
@@ -339,13 +365,30 @@ class Trainer:
         args = (self.params["gaussians"], self.opt_state, self.adc, self._adc_generator,
                 self.cfg.densify, self.scene_extent, self._image_diag)
         if self.mesh is not None:
-            gauss, self.opt_state, self.adc, report = densify_mod.densify_and_prune_sharded(
+            gauss, opt_state, adc, report = densify_mod.densify_and_prune_sharded(
                 *args, self.mesh, screen_prune=screen_prune, prune_only=prune_only)
         else:
-            gauss, self.opt_state, self.adc, report = densify_mod.densify_and_prune(
+            gauss, opt_state, adc, report = densify_mod.densify_and_prune(
                 *args, screen_prune=screen_prune, prune_only=prune_only)
-        self.params["gaussians"] = gauss
+        self._write_state(gauss, opt_state, adc)
         return report
+
+    @torch.no_grad()
+    def _write_state(self, gauss, opt_state=None, adc=None) -> None:
+        """Write a round's store (and moments, statistics) into the tensors
+        the trainer holds, in place: a captured step keeps reading them."""
+        trees = [(self.params["gaussians"], gauss)]
+        if opt_state is not None:
+            trees += [(self.opt_state[m]["gaussians"], opt_state[m]["gaussians"])
+                      for m in ("mu", "nu")]
+        for tree, new in trees:
+            for k, v in new.items():
+                if tree[k] is not v:
+                    tree[k].copy_(v)
+        if adc is not None:
+            for dst, src in zip(self.adc, adc):
+                if dst is not src:
+                    dst.copy_(src)
 
     def _shard_counts(self) -> np.ndarray:
         """Alive Gaussians of every block, the same on every rank."""
@@ -353,10 +396,9 @@ class Trainer:
         return densify_mod.shard_alive_counts(alive, self.mesh.size(GAUSS_AXIS)).cpu().numpy()
 
     def _rebalance(self) -> None:
-        gauss, self.opt_state, self.adc = densify_mod.rebalance_store(
+        self._write_state(*densify_mod.rebalance_store(
             self.params["gaussians"], self.opt_state, self.adc,
-            self.mesh.size(GAUSS_AXIS), mesh=self.mesh)
-        self.params["gaussians"] = gauss
+            self.mesh.size(GAUSS_AXIS), mesh=self.mesh))
 
     def _maybe_rebalance(self) -> bool:
         """After a sharded density-control round: repack the store across
@@ -373,15 +415,55 @@ class Trainer:
         return True
 
     def run_step(self) -> Dict[str, float]:
+        """One training step: on one CUDA device a replay of the captured
+        step, elsewhere the eager step."""
         with self.lock:
-            return self._run_step()
+            return self._run_step(graphed=True)
 
-    def _run_step(self) -> Dict[str, float]:
+    def run_step_eager(self) -> Dict[str, float]:
+        """One training step through the eager functions: the yardstick of
+        the graphed step, from the same state the same result."""
+        with self.lock:
+            return self._run_step(graphed=False)
+
+    def _step_tensors(self):
+        """Every tensor the step reads or writes, in a fixed order: a
+        captured step is valid while these are the same objects."""
+        live = [leaf for _, _, leaf in optim_mod.labelled_leaves(self.params)]
+        for moment in ("mu", "nu"):
+            live += [optim_mod.tree_get(self.opt_state[moment], path)
+                     for path, label, _ in optim_mod.labelled_leaves(self.params)
+                     if label != "frozen"]
+        scene = [getattr(self.scene, f.name) for f in dataclasses.fields(self.scene)]
+        return (*live, *self.adc, *(t for t in scene if isinstance(t, torch.Tensor)),
+                self.images, self._init_log_exposures)
+
+    def _graphed_step(self, sh_degree: int) -> torch.Tensor:
+        """The step's scalars from a replay of its graph for this key
+        (captured on the key's second step, after an eager warm-up)."""
+        key = (sh_degree, repr(self.cfg.model), repr(self.cfg.loss), id(self.opt))
+        call = self._step_graphs.get(key, self._step_tensors(), lambda: cuda_graphs.GraphedCall(
+            lambda: self._train_step(self._frame_buf, self._sigma_buf, sh_degree),
+            f"the training step (SH degree {sh_degree})"))
+        return call()
+
+    def _run_step(self, graphed: bool) -> Dict[str, float]:
         frame = int(self._rng.choice(self.dataset.train_indices))
         sigma = self._c2f_sigma()
-        if self.cfg.loss.coarse_to_fine_steps > 0:
-            sigma = torch.tensor(sigma, device=self.device)
-        scalars = self._train_step(frame, sigma, self.active_sh_degree())
+        deg = self.active_sh_degree()
+        self.opt.count_buffer(self.device).fill_(self.opt_state["count"])
+        if self.mesh is not None:  # eager, the frame and sigma as numbers
+            if self.cfg.loss.coarse_to_fine_steps > 0:
+                sigma = torch.tensor(sigma, device=self.device)
+            scalars = self._train_step(frame, sigma, deg)
+        else:
+            self._frame_buf.fill_(frame)
+            self._sigma_buf.fill_(sigma)
+            if graphed and cuda_graphs.graphable(self.device):
+                scalars = self._graphed_step(deg)
+            else:
+                scalars = self._train_step(self._frame_buf, self._sigma_buf, deg)
+        self.opt_state["count"] += 1
         self.step += 1
         d = self.cfg.densify
         in_window = d.enabled and d.start_iter <= self.step <= d.stop_iter
@@ -400,7 +482,7 @@ class Trainer:
         # stop_iter, else the final model could keep every opacity clamped
         # near-transparent.
         if d.enabled and self.step < d.stop_iter and self.step % d.opacity_reset_interval == 0:
-            self.params["gaussians"] = densify_mod.reset_opacity(self.params["gaussians"])
+            self._write_state(densify_mod.reset_opacity(self.params["gaussians"]))
         if report is not None:
             scalars = torch.cat([scalars, torch.stack(list(report)).to(scalars.dtype)])
         values = scalars.tolist()  # the one host read

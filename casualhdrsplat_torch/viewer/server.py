@@ -111,7 +111,8 @@ def make_orbit_render_fn(trainer, radius: float = 4.0):
 
     Adam writes the trainer's parameters in place, and a request renders
     on the server's thread: each render holds `trainer.lock`, which the
-    trainer holds across a step, so it sees one step's parameters."""
+    trainer holds across a step, so it sees one step's parameters.  On
+    the card a render replays a CUDA graph (`trainer.renders`)."""
     import torch
 
     from casualhdrsplat_torch.data import synthetic
@@ -123,7 +124,7 @@ def make_orbit_render_fn(trainer, radius: float = 4.0):
             img_height=trainer.dataset.height, device=trainer.device,
         )
         with trainer.lock, torch.no_grad():
-            img, _, _ = imf.render_pose(
+            img, _, _ = trainer.renders.render_pose(
                 trainer.params, trainer.scene, cam.viewmat, trainer.cfg.model,
                 exposure=torch.exp(torch.tensor(log_exposure, device=trainer.device)),
                 hdr_output=(mode == "hdr"),

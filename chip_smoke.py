@@ -5,7 +5,8 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
-   started together, sm_90a) and prints ptxas's register and spill lines.
+   started together, sm_90a) and prints ptxas's register and spill lines;
+   meanwhile Triton compiles kernel T1 (ops/crf_fused.py, the CRF MLP).
 3. Packed serving at the full width of the ladder4-full model
    (ModelConfig() defaults: 131,072 Gaussians, SH degree 3, 8 virtual
    views, MLP CRF with 32 units, 16x128 tiles, chunk 128, shared binning)
@@ -14,6 +15,10 @@
    per-view packed branch).  The weights are random, from a fixed seed.
    Checks the outputs (finite, shaped, in range) and that the forward
    kernel was launched on both branches (its count, zeroed just before).
+   The same requests then go through image_formation.GraphedRenders (the
+   viewer's, the command line's and entry()'s path: one CUDA graph per
+   mode, warm-up, capture, replays), each equal to the eager output to the
+   bit, and the launches a replay counts are logged.
 4. Dense serving of the same model with RasterizeConfig(packed=False,
    16x16 tiles, capacity 1024, chunk 128), whose kernels read the payload
    rows through the [tiles, capacity] id table: 2 render_frame and 2
@@ -24,7 +29,10 @@
 5. Packed training at the same width: a synthetic casual video (4 frames of
    800x800, 8 virtual views each, a random cloud of 131,072 Gaussians) made
    on the card, a Trainer on PRESETS["ladder4"] with density control off,
-   one warm-up step and 5 timed steps.  Checks that every scalar is finite,
+   one warm-up step and 5 timed steps, each run twice from the same state,
+   as the captured CUDA graph (`run_step`) and eagerly (`run_step_eager`),
+   every scalar and every tensor of the step held together (the
+   card-vs-CPU step tolerance).  Checks that every scalar is finite,
    that every parameter group moved, that the density-control statistics
    rose and that the packed forward and backward kernels were each launched
    once per step (counts zeroed just before the steps).
@@ -32,8 +40,10 @@
    the dense RasterizeConfig and density control on, its store built from
    98,304 of the cloud's points so that a round finds free slots; 3 warm-up
    steps through the SH warm-up, then 5 timed steps at SH degree 3 that
-   cross one densify round and one opacity reset.  Checks: the dense
-   kernels launched once a step each, scalars finite, every group moved,
+   cross one densify round and one opacity reset, graphed against eager
+   as in 5 (the round's threshold put where both grant the same slots).
+   Checks: the dense kernels launched once a step each, scalars finite,
+   every group moved,
    the round cloned or split, `alive` rose by what it granted less what it
    pruned, the moments of the new slots are zero, the reset clamped every
    opacity.
@@ -72,7 +82,11 @@
 10. Times each kernel with CUDA events at the paths' shapes, the packed ones
    also at the same frame on 16x16 tiles and at bench.py::build's shapes
    (16x16 tiles, 4 views, 100k Gaussians), beside its plain version and its
-   bound.
+   bound; T1 against its plain versions (forward atol T1_ATOL, backward at
+   the backward tolerance, two launches equal to the bit) on a frame's, a
+   pose's and a training step's inputs.  Prints the eager and the graphed
+   walls and profiled busy shares of render_frame, render_pose, both
+   training steps and bench's step, all from this run.
 11. The at-spec quality run (casualhdrsplat_torch.quality_run, in this
    process): the reference's r05 fixture built on the card through
    build_fixture (the structured cloud of 30,000 surfels, 12 frames of
@@ -91,9 +105,9 @@
    B1 and B2 once per step.
 13. entry (casualhdrsplat_torch.entry.entry()): the blurred frame's shape
    and range, B1 launched once.
-14. With --profile, prints the device time of a render_frame request, a
-   render_pose request and a training step by kernel (torch.profiler), on
-   both paths.
+14. With --profile, prints the largest kernels of every profiled window
+   (torch.profiler) and profiles the dense serving requests and the
+   sharded steps too.
 15. Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
    {...}}`.
 
@@ -292,11 +306,16 @@ def check_image(name, img, shape, lo=None, hi=None):
         raise AssertionError(f"{name}: values outside [{lo}, {hi}]")
 
 
-def capture_calls(module, name, fn):
+def capture_calls(module, name, fn, restore_counts=True):
     """Run fn() and return the arguments of every call it makes of
-    `module.<name>` (which still runs), tensors detached."""
+    `module.<name>` (which still runs), tensors detached.  fn() runs to
+    capture a comparison's inputs: its kernel launches are put back out
+    of the counts (unless `restore_counts` is False)."""
+    from casualhdrsplat_torch.ops import cuda_build
+
     calls = []
     original = getattr(module, name)
+    counts = [c.launches for c in cuda_build.COUNTERS]
 
     def recorder(*args, **kw):
         calls.append(tuple(a.detach() if hasattr(a, "detach") else a for a in args))
@@ -307,6 +326,9 @@ def capture_calls(module, name, fn):
         fn()
     finally:
         setattr(module, name, original)
+        if restore_counts:
+            for c, n in zip(cuda_build.COUNTERS, counts):
+                c.launches = n
     return calls
 
 
@@ -426,6 +448,111 @@ def measure_gradient(label, kernel, plain, g4, work, nbytes, p, reps, determinis
     return res
 
 
+# Kernel T1 (ops/crf_fused.py), held against its plain versions: forward
+# atol T1_ATOL (Triton's exp, log and division are the approximate hardware
+# ones, a few ulp each, and the H units are summed in another order), the
+# backward's groups at the backward tolerance above, two launches equal to
+# the bit.  Its fp32 operations, for the bound: per (pixel, channel, unit)
+# the forward evaluates u - c, k d, -z, exp, 1 +, the reciprocal, w s and
+# the sum (8); per (pixel, channel) the clamp, + eps, log, - log_min, the
+# division, g u +, + bias, the output sigmoid (4), the stretch (2) and the
+# clip (2) = 16.  The backward recomputes the units (6), s (1 - s) (2),
+# w s' (1), the three accumulations (2 + 3 + 3) and d y / d u (2) = 19 a
+# unit, and per element the forward's 16 plus the two clamps' subgradients
+# (6), t (4), the g and bias sums (3) and d x (5) = 34.  exp and the
+# reciprocal run on the special-function units at a sixteenth of the fp32
+# rate; the table's fp32 peak charges them as any fp32 operation.
+T1_ATOL = 1e-5
+T1_FWD_UNIT_OPS, T1_FWD_ELEM_OPS, T1_BWD_UNIT_OPS, T1_BWD_ELEM_OPS = 8, 16, 19, 34
+
+
+class uncounted:
+    """Put every kernel's launch count back on leaving: the launches of a
+    comparison or of a helper run are not the path's."""
+
+    def __enter__(self):
+        from casualhdrsplat_torch.ops import cuda_build
+
+        self.counts = [(c, c.launches) for c in cuda_build.COUNTERS]
+
+    def __exit__(self, *exc):
+        for c, n in self.counts:
+            c.launches = n
+
+
+def measure_crf_forward(label, call, reps):
+    """T1's forward against its plain version on one captured call of its
+    launcher (x [B, 3], k, c, w, g, bias, log_min, span): agreement, times,
+    bound.  The function reads x and writes the image, 12 bytes a pixel
+    each way."""
+    import torch
+
+    from casualhdrsplat_torch.ops import crf_fused
+
+    x, k, c, w, g, bias, log_min, span = call
+    with uncounted(), torch.no_grad():
+        out = crf_fused._forward_cuda(*call)
+        ref = crf_fused.monotone_crf_reference(x, k, c, w, g, bias, log_min, log_min + span)
+        err = float((out - ref).abs().max())
+        ms = event_ms(lambda: crf_fused._forward_cuda(*call), reps)
+        plain_ms = event_ms(lambda: crf_fused.monotone_crf_reference(
+            x, k, c, w, g, bias, log_min, log_min + span), max(2, reps // 10), warmup=1)
+    n, h = x.numel(), k.shape[1]
+    bound_ms, bound_by = roofline(2 * n * 4 + 4 * (3 * k.numel() + 6),
+                                  n * (T1_FWD_UNIT_OPS * h + T1_FWD_ELEM_OPS))
+    res = dict(label=label, pixels=x.shape[0], hidden=h, max_abs_err=err, atol=T1_ATOL,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"crf_fused forward[{label}]: " + json.dumps(res))
+    if not err <= T1_ATOL:
+        raise AssertionError(f"crf_fused forward[{label}]: max abs err {err} > {T1_ATOL}")
+    return res
+
+
+def measure_crf_backward(label, call, reps):
+    """T1's backward against its closed-form plain version on one captured
+    call of its launcher (x, the upstream gradient, k, c, w, g, bias,
+    log_min, span): every group at the backward tolerance, two launches
+    equal to the bit, times, bound (x and the upstream gradient read, d x
+    written, 12 bytes a pixel each)."""
+    import torch
+
+    from casualhdrsplat_torch.ops import crf_fused
+
+    x, go, k, c, w, g, bias, log_min, span = call
+    with uncounted(), torch.no_grad():
+        got = crf_fused._backward_cuda(*call)
+        again = crf_fused._backward_cuda(*call)
+        ref = crf_fused.monotone_crf_backward_reference(x, go, k, c, w, g, bias, log_min,
+                                                        log_min + span)
+        errs = {}
+        for name, a, b, r in zip(("x", "k", "c", "w", "g", "bias"), got, again, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"crf_fused backward[{label}]: two launches differ in {name}")
+            errs[name] = grads_close(f"crf_fused backward[{label}] d{name}", a, r)
+        ms = event_ms(lambda: crf_fused._backward_cuda(*call), reps)
+        plain_ms = event_ms(lambda: crf_fused.monotone_crf_backward_reference(
+            x, go, k, c, w, g, bias, log_min, log_min + span), max(2, reps // 10), warmup=1)
+    n, h = x.numel(), k.shape[1]
+    bound_ms, bound_by = roofline(3 * n * 4 + 4 * 2 * (3 * k.numel() + 6),
+                                  n * (T1_BWD_UNIT_OPS * h + T1_BWD_ELEM_OPS))
+    res = dict(label=label, pixels=x.shape[0], hidden=h, max_abs_err=max(errs.values()),
+               max_abs_err_by_group=errs, deterministic=True, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"crf_fused backward[{label}]: " + json.dumps(res))
+    return res
+
+
+def measure_crf_step(label, run):
+    """T1 forward and backward on the image-sized call of one run of
+    `run` (a training step's loss and gradients: the frame's CRF and the
+    priors' curves), as captured."""
+    from casualhdrsplat_torch.ops import crf_fused
+
+    fwd = max(capture_calls(crf_fused, "_forward_cuda", run), key=lambda a: a[0].shape[0])
+    bwd = max(capture_calls(crf_fused, "_backward_cuda", run), key=lambda a: a[0].shape[0])
+    return measure_crf_forward(label, fwd, reps=10), measure_crf_backward(label, bwd, reps=10)
+
+
 def _stream_meta(stream, lo, hi, statics):
     return dict(rows=lo.shape[0], tile=f"{statics.tile_h}x{statics.tile_w}",
                 chunk=statics.chunk, stream_rows=stream.shape[0],
@@ -535,7 +662,9 @@ def measure_dense_backward(label, call, reps):
 
 def profile_window(name, fn, reps=3):
     """Device time by kernel over `reps` calls of fn() (torch.profiler),
-    against the host-clock wall time of the same window."""
+    against the host-clock wall time of the same window: returns (wall ms,
+    busy ms) per call.  The kernels of a replayed CUDA graph are traced one
+    by one like any other.  With --profile, also the largest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -549,9 +678,35 @@ def profile_window(name, fn, reps=3):
         f"device busy {busy / reps:.2f} ms per call "
         f"({100 * busy / (wall * 1e3):.1f}% of wall), "
         f"{sum(e.count for e in events) // reps} kernel launches per call")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
-        t = e.self_device_time_total / 1e3 / reps
-        log(f"  {t:9.3f} ms/call {e.count // reps:5d} launches  {e.key[:90]}")
+    if "--profile" in sys.argv[1:]:
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
+            t = e.self_device_time_total / 1e3 / reps
+            log(f"  {t:9.3f} ms/call {e.count // reps:5d} launches  {e.key[:90]}")
+    return wall * 1e3 / reps, busy / reps
+
+
+def eager_and_graphed(name, eager, graphed, reps=3):
+    """Walls (host clock, medians of `reps` calls each, alternating) and
+    profiled busy shares of the eager and the graphed call, in this call of
+    the script: one line, kept for the summary."""
+    for fn in (eager, graphed, graphed):  # warm-up: the graph is captured
+        timed(fn)
+    walls = {"eager": [], "graphed": []}
+    for _ in range(reps):
+        for kind, fn in (("eager", eager), ("graphed", graphed)):
+            walls[kind].append(timed(fn)[1] * 1e3)
+    row = {"window": name}
+    for kind, fn in (("eager", eager), ("graphed", graphed)):
+        wall, busy = profile_window(f"{name}, {kind}", fn)
+        row[kind] = dict(wall_ms=float(np.median(walls[kind])), walls_ms=walls[kind],
+                         profiled_wall_ms=wall, busy_ms=busy, busy_share=busy / wall)
+    log("eager vs graphed: " + json.dumps(row))
+    WINDOWS.append(row)
+    return row
+
+
+# every eager_and_graphed row of this run, printed together at the end
+WINDOWS = []
 
 
 def small_slice_check(device):
@@ -590,6 +745,46 @@ def small_slice_check(device):
     log(f"small slice, card vs CPU: max abs err {err} (atol {ATOL})")
     if not torch.allclose(outs[0], outs[1], atol=ATOL, rtol=RTOL):
         raise AssertionError(f"slice on the card disagrees with the CPU: {err}")
+
+
+def row_bounds_check(device):
+    """B1 and B2 on rows whose bounds leave the stream (one starting before
+    it, one ending past it, one ending before it starts): each composites
+    nothing and owns no slot, as the same rows made empty, to the bit, and
+    B1 agrees with its plain version.  The launcher reads no bound on the
+    host; the kernels check them."""
+    import torch
+
+    from casualhdrsplat_torch.ops import binning
+    from casualhdrsplat_torch.ops import rasterize_packed as rp
+    from casualhdrsplat_torch.ops.composite import CompositeStatics
+
+    statics = CompositeStatics(num_views=1, ntx=2, nty=2, tile_h=16, tile_w=16, chunk=32,
+                               alpha_clip=0.99, alpha_threshold=1 / 255,
+                               transmittance_eps=1e-4, backend="pallas")
+    rng = np.random.default_rng(SEED + 5)
+    stream = torch.zeros(128, binning.PAYLOAD_DIM)
+    stream[:, 0:2] = torch.as_tensor(rng.uniform(0, 32, (128, 2)), dtype=torch.float32)
+    stream[:, 2] = stream[:, 4] = 0.05
+    stream[:, 5] = 0.6
+    stream[:, 6:10] = 1.0
+    stream = stream.to(device)
+    i32 = dict(dtype=torch.int32, device=device)
+    bad = (torch.tensor([0, -7, 40, 90], **i32), torch.tensor([30, 50, 200, 60], **i32))
+    empty = (torch.tensor([0, 0, 0, 0], **i32), torch.tensor([30, 0, 0, 0], **i32))
+    with uncounted(), torch.no_grad():
+        out = rp._forward_cuda(stream, *bad, rp.row_order(*bad), statics)
+        want = rp._forward_cuda(stream, *empty, rp.row_order(*empty), statics)
+        g4 = torch.ones_like(out)
+        d = rp._backward_cuda(stream, *bad, rp.row_order(*bad), out, g4, statics)
+        d_want = rp._backward_cuda(stream, *empty, rp.row_order(*empty), want, g4, statics)
+    plain = rp.composite_stream_reference(stream, *bad, statics)
+    err = float((out - plain).abs().max())
+    log(f"rows outside the stream: B1 and B2 treat them as empty (equal to the bit), B1 "
+        f"against its plain version max abs err {err}")
+    if not (torch.equal(out, want) and torch.equal(d, d_want) and err <= ATOL
+            and float(out[1:].abs().max()) == 0.0 and float(d[30:].abs().max()) == 0.0):
+        raise AssertionError("B1/B2 on rows outside the stream")
 
 
 def small_train_step_check(device):
@@ -684,11 +879,186 @@ def timed_trainer(cfg, dataset, device):
     return trainer, t_init, sum(knn_s)
 
 
-def run_timed_steps(trainer, steps, kernels, after_step=None):
-    """`steps` timed run_step calls with the launch counts of `kernels`
-    zeroed just before: checks finite scalars, one launch of each kernel per
-    step, finite parameters, every floating group moved, the visibility
-    counts rose (unless a round zeroed them).  Returns the step seconds."""
+def trainer_state(trainer):
+    """Everything a training step reads and writes, copied: the tensors,
+    the update count and step, the frame sampler, the split-noise
+    generator and the watchdog."""
+    return dict(tensors=[x.clone() for x in trainer._step_tensors()],
+                count=trainer.opt_state["count"], step=trainer.step,
+                rng=copy.deepcopy(trainer._rng.bit_generator.state),
+                noise=trainer._adc_generator.get_state(),
+                watch=(trainer._clip_floor, trainer._clip_warn_at, trainer._screen_prune_armed))
+
+
+def set_trainer_state(trainer, state):
+    """Put a `trainer_state` back, writing the trainer's tensors in place:
+    its captured step keeps reading them."""
+    import torch
+
+    with torch.no_grad():
+        for dst, src in zip(trainer._step_tensors(), state["tensors"]):
+            dst.copy_(src)
+    trainer.opt_state["count"], trainer.step = state["count"], state["step"]
+    trainer._rng.bit_generator.state = copy.deepcopy(state["rng"])
+    trainer._adc_generator.set_state(state["noise"])
+    trainer._clip_floor, trainer._clip_warn_at, trainer._screen_prune_armed = state["watch"]
+
+
+def round_threshold(trainer):
+    """When the next step ends in a densify round: put the round's
+    gradient threshold into the widest gap of the averages that step will
+    see (predicted by an eager loss_and_grads from the same state), between
+    the 70th and 97th percentile of the alive slots'.  The graphed and the
+    eager step then grant the same slots: their statistics differ only by
+    the float atomics of the backward, far below that gap.  Returns the
+    threshold, or None."""
+    import torch
+
+    from casualhdrsplat_torch.train import densify as densify_mod
+
+    d, nxt = trainer.cfg.densify, trainer.step + 1
+    if not (d.enabled and d.start_iter <= nxt <= d.stop_iter and nxt % d.interval == 0):
+        return None
+    frame = int(copy.deepcopy(trainer._rng).choice(trainer.dataset.train_indices))
+    with uncounted():
+        _, aux, _, g2d = trainer.loss_and_grads(frame, torch.tensor(trainer._c2f_sigma(),
+                                                                    device=trainer.device))
+    adc = densify_mod.accumulate(trainer.adc, g2d, aux["radii"], scale=trainer._adc_scale)
+    avg = (adc.grad_accum / adc.count.clamp(min=1))[trainer.params["gaussians"]["alive"]]
+    avg = torch.sort(avg).values
+    lo, hi = int(0.70 * avg.numel()), int(0.97 * avg.numel())
+    k = int(torch.argmax(avg[lo + 1:hi] - avg[lo:hi - 1]))
+    d.grad_threshold = float(0.5 * (avg[lo + k] + avg[lo + k + 1]))
+    return d.grad_threshold
+
+
+def step_tensor_kinds(trainer):
+    """(kind, group label) of every tensor of `trainer._step_tensors()`, in
+    its order: the parameters, the two moment trees, the statistics, then
+    what a step only reads."""
+    from casualhdrsplat_torch.train import optim
+
+    leaves = list(optim.labelled_leaves(trainer.params))
+    kinds = [("param", label) for _, label, _ in leaves]
+    for moment in ("mu", "nu"):
+        kinds += [(moment, label) for _, label, _ in leaves if label != "frozen"]
+    kinds += [("stat", name) for name in trainer.adc._fields]
+    return kinds + [("read", None)] * (len(trainer._step_tensors()) - len(kinds))
+
+
+def compare_step_tensors(trainer, label, start, graphed, eager):
+    """Hold the graphed step's tensors to the eager step's, both from the
+    state `start` (`trainer_state`s).  A group's gradient is read off its
+    first moment, mu = b1 mu0 + (1 - b1) g, and held at the card-vs-CPU
+    step tolerance (BWD_ATOL_REL of the group's largest + BWD_RTOL; the
+    second moment is a function of the same gradient).  The parameters are
+    held to within two of the group's learning rates (times the pose
+    group's translation scale) plus two roundings: Adam divides each
+    element's first moment by its own root mean square, so where a
+    gradient sits within the float atomics' noise its step can take either
+    sign, and a step moves an element by about lr.  The statistics' sum of
+    screen gradients at the step tolerance, their counts and radii and
+    every tensor a step only reads to the bit.  Returns the worst gradient
+    error (of the largest) and the worst parameter difference (in lr)."""
+    import torch
+
+    worst = {"gradient": 0.0, "param_lr": 0.0}
+    lrs = trainer.opt.learning_rates(start["count"])
+    for i, ((kind, name), a0, a, b) in enumerate(zip(step_tensor_kinds(trainer),
+                                                     start["tensors"], graphed["tensors"],
+                                                     eager["tensors"])):
+        what = f"{label}: {kind} {name} (tensor {i} of the step)"
+        if kind == "param" and a.is_floating_point():
+            group = trainer.opt.groups[name]
+            lr = lrs[name] * max(1.0, group.trans_scale)
+            err = float((a - b).abs().max())
+            if err > 2.0 * lr + 2.4e-7 * float(b.abs().max()):
+                raise AssertionError(f"{what}: max abs diff {err}, learning rate {lr}")
+            worst["param_lr"] = max(worst["param_lr"], err / max(lr, 1e-30))
+        elif kind == "mu":
+            b1 = trainer.opt.groups[name].b1
+            g_a, g_b = (a - b1 * a0) / (1.0 - b1), (b - b1 * a0) / (1.0 - b1)
+            # two roundings of the moment, seen through 1 / (1 - b1)
+            floor = 2.4e-7 * float(b.abs().max()) / (1.0 - b1)
+            scale = float(g_b.abs().max())
+            diff = (g_a - g_b).abs()
+            if bool((diff > BWD_ATOL_REL * scale + BWD_RTOL * g_b.abs() + floor).any()):
+                raise AssertionError(f"{what}: gradient max abs err {float(diff.max())} "
+                                     f"against a largest of {scale}")
+            worst["gradient"] = max(worst["gradient"], float(diff.max()) / max(scale, 1e-30))
+        elif kind == "stat" and name == "grad_accum":
+            grads_close(what, a, b)
+        elif kind != "nu" and not torch.equal(a, b):
+            raise AssertionError(f"{what} differs")
+    return worst
+
+
+def graph_vs_eager_steps(trainer, steps, kernels, label, after_step=None):
+    """`steps` training steps, each run twice from the same state: the
+    graphed `run_step` and the eager `run_step_eager`; the run goes on from
+    the graphed one.  Each step must give the eager step's scalars (the
+    counts equal, loss and PSNR within the card-vs-CPU step tolerance) and
+    its tensors as `compare_step_tensors` holds them: the float atomics of
+    the packed stream gather's transpose and of B4 add in an order that
+    changes from run to run, and nothing else differs.  Each of `kernels`
+    must launch once a
+    step on either path.  A round's threshold is put where both grant the
+    same slots (`round_threshold`).  Returns {"graphed": walls, "eager":
+    walls} in seconds, and "replay": whether each graphed step replayed
+    (the warm-up and the capture did not)."""
+    walls = {"graphed": [], "eager": [], "replay": []}
+    for _ in range(steps):
+        thr = round_threshold(trainer)
+        start = trainer_state(trainer)
+        outs, launched, results = {}, {}, {}
+        call = trainer._step_graphs.call
+        seen = (call.captures, call.replays) if call is not None else None
+        for kind in ("graphed", "eager"):
+            if kind == "eager":
+                set_trainer_state(trainer, start)
+            before = [k.launches for k in kernels]
+            run = trainer.run_step if kind == "graphed" else trainer.run_step_eager
+            outs[kind], dt = timed(run)
+            walls[kind].append(dt)
+            if kind == "graphed":  # a replay, neither the warm-up nor the capture
+                walls["replay"].append(trainer._step_graphs.call is call and seen is not None
+                                       and (call.captures, call.replays) == (seen[0],
+                                                                             seen[1] + 1))
+            launched[kind] = [k.launches - b for k, b in zip(kernels, before)]
+            results[kind] = trainer_state(trainer)
+        g, e = outs["graphed"], outs["eager"]
+        log(f"{label} step {trainer.step}: graphed {walls['graphed'][-1] * 1e3:.2f} ms, "
+            f"eager {walls['eager'][-1] * 1e3:.2f} ms, " + ", ".join(
+                f"{k} {v:.5f}" if k in ("loss", "psnr") else f"{k} {v:.0f}"
+                for k, v in g.items()) + (f" (round threshold {thr:.4g})" if thr else ""))
+        if g.keys() != e.keys() or not all(np.isfinite(v) for v in g.values()):
+            raise AssertionError(f"{label}: graphed step {g} against eager {e}")
+        for key in g:
+            exact = key not in ("loss", "psnr")
+            if (g[key] != e[key]) if exact else abs(g[key] - e[key]) > (
+                    BWD_ATOL_REL + BWD_RTOL) * abs(e[key]):
+                raise AssertionError(f"{label}: {key} graphed {g[key]!r}, eager {e[key]!r}")
+        worst = compare_step_tensors(trainer, label, start, results["graphed"],
+                                     results["eager"])
+        if any(n != [1] * len(kernels) for n in launched.values()):
+            raise AssertionError(f"{label}: launches a step {launched}, each kernel once")
+        log(f"  graphed against eager from the same state: scalars agree; every group's "
+            f"gradient (from its first moment) within tolerance, worst max abs err "
+            f"{worst['gradient']:.3g} of the group's largest; parameters within one Adam "
+            f"step of each other, worst {worst['param_lr']:.3g} lr; statistics agree")
+        set_trainer_state(trainer, results["graphed"])
+        if after_step is not None:
+            after_step(g)
+    return walls
+
+
+def run_timed_steps(trainer, steps, kernels, label, after_step=None):
+    """`steps` training steps, each graphed and eager from the same state
+    (`graph_vs_eager_steps`), with the launch counts of `kernels` zeroed
+    just before: checks finite scalars, one launch of each kernel per step
+    on either path, finite parameters, every floating group moved, and
+    logs the launches a replay of the step's graph counts for every
+    kernel.  Returns the walls, the graphed ones of replays only."""
     import torch
 
     from casualhdrsplat_torch.train import optim
@@ -698,31 +1068,29 @@ def run_timed_steps(trainer, steps, kernels, after_step=None):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
-    step_s = []
-    for _ in range(steps):
-        out, dt = timed(trainer.run_step)
-        step_s.append(dt)
-        log(f"step {trainer.step}: {dt * 1e3:.2f} ms, " + ", ".join(
-            f"{k} {v:.5f}" if k in ("loss", "psnr") else f"{k} {v:.0f}"
-            for k, v in out.items()))
-        if not all(np.isfinite(v) for v in out.values()):
-            raise AssertionError(f"step {trainer.step}: non-finite scalars {out}")
-        if after_step is not None:
-            after_step(out)
-    mpix = SIZE * SIZE * m.num_virtual_views / np.median(step_s) / 1e6
-    log(f"training: step median {np.median(step_s) * 1e3:.2f} ms = {mpix:.2f} Mpix/s "
-        f"fwd+bwd ({SIZE}x{SIZE} x {m.num_virtual_views} views per step), peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"launches over {steps} steps: "
+    walls = graph_vs_eager_steps(trainer, steps, kernels, label, after_step)
+    replays = [w for w, r in zip(walls["graphed"], walls["replay"]) if r]
+    walls["graphed"] = replays or walls["graphed"]
+    pix = SIZE * SIZE * m.num_virtual_views
+    for kind in ("graphed", "eager"):
+        med = float(np.median(walls[kind]))
+        log(f"{label}, {kind}: step median {med * 1e3:.2f} ms = {pix / med / 1e6:.2f} Mpix/s "
+            f"fwd+bwd ({SIZE}x{SIZE} x {m.num_virtual_views} views per step)")
+    log(f"{label}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (graph "
+        f"pool and eager step); launches over {steps} graphed and {steps} eager steps: "
         + ", ".join(f"{k.symbol} {k.launches}" for k in kernels))
-    if any(k.launches != steps for k in kernels):
+    call = trainer._step_graphs.call
+    log(f"{label}: the step's graph was captured {call.captures} time(s) and replayed "
+        f"{call.replays} times; a replay counts " + ", ".join(
+            f"{c.symbol} {n}" for c, n in call._rise))
+    if any(k.launches != 2 * steps for k in kernels):
         raise AssertionError("each training step must launch each compositor kernel once")
-    for path, label, leaf in optim.labelled_leaves(trainer.params):
+    for path, label_, leaf in optim.labelled_leaves(trainer.params):
         if not bool(torch.isfinite(leaf.float()).all()):
             raise AssertionError(f"parameter {path} holds non-finite values")
-        if label != "frozen" and torch.equal(leaf, before[path]):
+        if label_ != "frozen" and torch.equal(leaf, before[path]):
             raise AssertionError(f"parameter {path} did not move in {steps} steps")
-    return step_s
+    return walls
 
 
 def train_phase(device, dataset, rp):
@@ -751,23 +1119,65 @@ def train_phase(device, dataset, rp):
         raise AssertionError("the trainer does not run at the model's full width")
 
     _, t_warm = timed(trainer.run_step)
-    log(f"warm-up step: {t_warm:.3f} s")
+    log(f"warm-up step (the graph's, eager): {t_warm:.3f} s")
     count_before = int(trainer.adc.count.sum())
-    run_timed_steps(trainer, TRAIN_STEPS, (rp.FWD_KERNEL, rp.BWD_KERNEL))
-    fwd_launches, bwd_launches = rp.FWD_KERNEL.launches, rp.BWD_KERNEL.launches
+    run_timed_steps(trainer, TRAIN_STEPS, (rp.FWD_KERNEL, rp.BWD_KERNEL), "packed training")
     if int(trainer.adc.count.sum()) <= count_before:
         raise AssertionError("the density-control visibility counts did not rise")
+    eager_and_graphed("packed training step", trainer.run_step_eager, trainer.run_step)
+    fwd_launches, bwd_launches = rp.FWD_KERNEL.launches, rp.BWD_KERNEL.launches
 
-    # kernel B2 on the inputs a training step gives it
+    # kernel B2 and T1 on the inputs a training step gives them
     frame = int(trainer.dataset.train_indices[1])
     bwd_call, = capture_calls(rp, "_backward_cuda", lambda: trainer.loss_and_grads(frame))
     res = measure_backward("train_step", bwd_call, reps=10)
     with torch.no_grad():
         measure_compositor("train_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=10)
     del bwd_call
-    if "--profile" in sys.argv[1:]:
-        profile_window("train_step", trainer.run_step)
-    return fwd_launches, bwd_launches, res
+    t1 = measure_crf_step("train_step", lambda: trainer.loss_and_grads(frame))
+    return fwd_launches, bwd_launches, res, t1
+
+
+def graphed_serving(params, scene, cfg, pose_vms, angles, exposure, eager_out):
+    """The serving requests again through image_formation.GraphedRenders
+    (the viewer's, the command line's and entry()'s path: CUDA graphs, one
+    per mode, the first call of each an eager warm-up, the second its
+    capture): the 3 blurred frames and the 6 LDR and HDR views, each equal
+    to the eager request's output to the bit, then 3 depth views against
+    the eager ones.  Logs the walls and the launches a replay of each graph
+    counts.  Returns the GraphedRenders."""
+    import torch
+
+    from casualhdrsplat_torch.models import image_formation as imf
+
+    renders = imf.GraphedRenders()
+    walls = {"render_frame": [], "render_pose": []}
+    with torch.inference_mode():
+        for fid in range(3):
+            out, dt = timed(lambda: renders.render_frame_blurred(params, scene, fid, cfg))
+            walls["render_frame"].append(dt * 1e3)
+            if not torch.equal(out, eager_out[fid]):
+                raise AssertionError(f"graphed render_frame({fid}) differs from the eager one")
+        for hdr in (False, True):
+            for a, vm in zip(angles, pose_vms):
+                (img, _, _), dt = timed(lambda: renders.render_pose(
+                    params, scene, vm, cfg, exposure=exposure, hdr_output=hdr))
+                walls["render_pose"].append(dt * 1e3)
+                if not torch.equal(img, eager_out[a, hdr]):
+                    raise AssertionError(f"graphed render_pose(angle={a}, hdr={hdr}) differs "
+                                         f"from the eager one")
+        for vm in pose_vms:
+            got = renders.render_pose(params, scene, vm, cfg, depth_output=True)
+            want = imf.render_pose(params, scene, vm, cfg, depth_output=True)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError("graphed depth render differs from the eager one")
+    log("graphed serving: every request equal to the eager one to the bit; walls in ms "
+        "(warm-up, capture, replays): " + json.dumps(
+            {k: [round(w, 2) for w in v] for k, v in walls.items()}))
+    for key, cache in renders._graphs.items():
+        log(f"  graph {key}: captured {cache.call.captures}, replayed {cache.call.replays}; "
+            f"a replay counts " + ", ".join(f"{c.symbol} {n}" for c, n in cache.call._rise))
+    return renders
 
 
 def dense_model_cfg(cfg):
@@ -932,10 +1342,13 @@ def dense_train_phase(device, dataset, rd):
         snapshot()
 
     snapshot()
-    run_timed_steps(trainer, TRAIN_STEPS, (rd.FWD_KERNEL, rd.BWD_KERNEL), after_step)
-    fwd_launches, bwd_launches = rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches
+    run_timed_steps(trainer, TRAIN_STEPS, (rd.FWD_KERNEL, rd.BWD_KERNEL), "dense training",
+                    after_step)
     if len(reports) != 1 or trainer.step < DENSE_RESET_STEP:
         raise AssertionError("the timed steps must cross one densify round and one reset")
+    d.enabled = False  # the windows below time steps, not rounds (SH stays at 3)
+    eager_and_graphed("dense training step", trainer.run_step_eager, trainer.run_step)
+    fwd_launches, bwd_launches = rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches
 
     # kernels B3 and B4 on the inputs a dense training step gives them
     frame = int(trainer.dataset.train_indices[1])
@@ -945,8 +1358,6 @@ def dense_train_phase(device, dataset, rd):
         measure_dense_forward("dense_train_step_forward", bwd_call[:3] + bwd_call[5:], 1,
                               reps=10)
     del bwd_call
-    if "--profile" in sys.argv[1:]:
-        profile_window("dense_train_step", trainer.run_step)
     return fwd_launches, bwd_launches, res
 
 
@@ -1173,7 +1584,8 @@ def cli_phase(device, dataset, rp):
         for mode, calls in modes.items():
             extra = (["--path-n", "3", "--gif", os.path.join(renders, mode, "path.gif")]
                      if mode == "novel" else [])
-            with CallTimer(imf, "render_pose") as poses, CallTimer(imf, "render_frame") as frames:
+            with CallTimer(imf.GraphedRenders, "render_pose") as poses, \
+                    CallTimer(imf.GraphedRenders, "render_frame_blurred") as frames:
                 _, (b1, _) = count(lambda: cli.main(
                     ["render", "--device", "cuda", "--checkpoint", step6, "--mode", mode,
                      "--frames", "1", "--out", os.path.join(renders, mode), *extra]))
@@ -1422,18 +1834,18 @@ def quality_phase(device, rp):
     run_step = trainer_mod.Trainer.run_step
 
     def counted_step(trainer):
-        """run_step, noting the B1 and B2 launches it made; the last step's
-        B2 call is kept for the comparison with the plain versions."""
+        """run_step, noting the B1 and B2 launches it made; after the last
+        step, B2's call on that state (frame 1's loss and gradients) is kept
+        for the comparison with the plain versions: a replayed step makes
+        no call of the launcher to capture."""
         before = tuple(k.launches for k in kernels)
-        if trainer.step == QUALITY_STEPS - 1:
-            outs = []
-            _, dt = timed(lambda: captured.extend(capture_calls(
-                rp, "_backward_cuda", lambda: outs.append(run_step(trainer)))))
-            out, = outs
-        else:
-            out, dt = timed(lambda: run_step(trainer))
+        out, dt = timed(lambda: run_step(trainer))
         per_step.append(tuple(k.launches - b for k, b in zip(kernels, before)))
         step_s.append(dt)
+        if trainer.step == QUALITY_STEPS:
+            frame = int(trainer.dataset.train_indices[1])
+            captured.extend(capture_calls(rp, "_backward_cuda",
+                                          lambda: trainer.loss_and_grads(frame)))
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1492,9 +1904,11 @@ def quality_phase(device, rp):
 
 
 def bench_phase(device, rp):
-    """bench.main at build()'s defaults: its JSON line, and B1 and B2 once
-    per step (a warm-up step and 3 windows).  Returns (launches of B1,
-    launches of B2)."""
+    """bench.main at build()'s defaults: its JSON line (the step replayed as
+    a CUDA graph), and B1 and B2 once per step (the warm-up steps and 3
+    windows); then, in this call, the same windows of the eager step (the
+    yardstick) and both steps' walls and busy shares.  Returns (launches of
+    B1, launches of B2) of bench.main."""
     import contextlib
     import io
 
@@ -1510,7 +1924,7 @@ def bench_phase(device, rp):
     lines = text.getvalue().strip().splitlines()
     for line in lines:
         log(line)
-    steps = 1 + bench.N_WINDOWS * bench.ITERS_PER_WINDOW
+    steps = bench.WARMUP_STEPS + bench.N_WINDOWS * bench.ITERS_PER_WINDOW
     result = json.loads(lines[-1])
     log(f"bench: {steps} steps in {seconds:.1f} s with the build; launches B1 {launches[0]}, "
         f"B2 {launches[1]}")
@@ -1518,26 +1932,37 @@ def bench_phase(device, rp):
         raise AssertionError(f"bench: exit {rc}, line {result}")
     if launches != (steps, steps):
         raise AssertionError("bench: B1 and B2 once per step")
+    step, args, pixels = bench.build(device=device)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        bench._run(step.eager, args, pixels, device, True)
+    log("bench, the eager step: " + text.getvalue().strip().splitlines()[-1])
+    eager_and_graphed("bench step", lambda: step.eager(*args), lambda: step(*args))
     return launches
 
 
 def entry_phase(device, rp):
-    """entry(): the blurred frame of the tiny model; B1 launched once.
-    Returns the launches of B1."""
+    """entry(): the blurred frame of the tiny model, three calls (the
+    graph's eager warm-up, its capture, a replay), equal to the bit; B1
+    launched once a call.  Returns the launches of B1."""
     import torch
 
     from casualhdrsplat_torch import entry
 
     fn, args = entry.entry(device)
     rp.FWD_KERNEL.launches = 0
+    outs, walls = [], []
     with torch.no_grad():
-        out, dt = timed(lambda: fn(*args))
+        for _ in range(3):
+            out, dt = timed(lambda: fn(*args))
+            outs.append(out)
+            walls.append(dt * 1e3)
     launches = rp.FWD_KERNEL.launches
     check_image("entry", out, (32, 32, 3), 0.0, 1.0)
     log(f"entry: blurred frame {tuple(out.shape)}, mean {float(out.mean()):.4f}, "
-        f"{dt * 1e3:.2f} ms, launches B1 {launches}")
-    if launches != 1:
-        raise AssertionError("entry: B1 once per call")
+        f"{[round(w, 2) for w in walls]} ms (warm-up, capture, replay), launches B1 {launches}")
+    if launches != 3 or not all(torch.equal(o, outs[0]) for o in outs):
+        raise AssertionError("entry: B1 once per call, the same frame every call")
     return launches
 
 
@@ -1621,7 +2046,8 @@ def sharded_world_of_one(device, dataset, rp):
                 f"one-device per-view {float(loss_a):.6f}; {len(a)} gradient groups agree, "
                 f"worst max abs err {worst:.3g} of the group's largest")
             del grads_a, grads_b, a, b
-            one.run_step(), sharded.run_step()  # warm-up
+            # the one-device per-view yardstick runs eagerly, as the mesh does
+            one.run_step_eager(), sharded.run_step()  # warm-up
             walls = {"one-device": [], "mesh (1, 1)": []}
             outs = {k: [] for k in walls}
             mesh.stats.clear()
@@ -1631,7 +2057,7 @@ def sharded_world_of_one(device, dataset, rp):
             for _ in range(TRAIN_STEPS):
                 for name, t in (("one-device", one), ("mesh (1, 1)", sharded)):
                     before = rp.FWD_KERNEL.launches, rp.BWD_KERNEL.launches
-                    out, dt = timed(t.run_step)
+                    out, dt = timed(t.run_step_eager)
                     walls[name].append(dt)
                     outs[name].append(out)
                     if t is sharded:
@@ -1653,8 +2079,8 @@ def sharded_world_of_one(device, dataset, rp):
             if launches != (TRAIN_STEPS, TRAIN_STEPS):
                 raise AssertionError("mesh (1, 1): B1 and B2 once per step")
             if "--profile" in sys.argv[1:]:
-                profile_window("one-device per-view step", one.run_step)
-                profile_window("mesh (1, 1) step", sharded.run_step)
+                profile_window("one-device per-view step", one.run_step_eager)
+                profile_window("mesh (1, 1) step", sharded.run_step_eager)
             del one, sharded
         finally:
             dist.destroy_process_group()
@@ -1711,7 +2137,8 @@ def sharded_rank(rank, device, dataset, cfgs, refs):
             mesh.stats.clear()
             outs = []
             calls, dt = timed(lambda: capture_calls(
-                *launchers[branch], lambda: outs.append(t.loss_and_grads(frame))))
+                *launchers[branch], lambda: outs.append(t.loss_and_grads(frame)),
+                restore_counts=False))
             (loss, _, grads, g2d), = outs
             if rank == MEASURED_RANK:
                 captured[branch] = calls[0]
@@ -1847,7 +2274,7 @@ def sharded_bench_and_dryrun(device):
     for line in lines:
         log(f"bench --sharded 1,1: {line}")
     result = json.loads(lines[-1])
-    steps = 1 + bench.N_WINDOWS * bench.ITERS_PER_WINDOW
+    steps = bench.WARMUP_STEPS + bench.N_WINDOWS * bench.ITERS_PER_WINDOW
     log(f"bench --sharded 1,1: {steps} steps in {seconds:.1f} s with the build; launches "
         f"B1 {launches[0]}, B2 {launches[1]}")
     if rc != 0 or not result["value"] > 0 or launches != [steps, steps]:
@@ -1886,9 +2313,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke test runs only on the card",
               file=sys.stderr)
         return 2
+    try:
+        import casualhdrsplat_torch  # noqa: F401
+    except ModuleNotFoundError:
+        # the script alone, without the package beside it: nothing to drive
+        print("chip_smoke: casualhdrsplat_torch is not importable; run the script from the "
+              "root of a checkout of the repository", file=sys.stderr)
+        return 2
     from casualhdrsplat_torch.bench import card_line
     from casualhdrsplat_torch.data import synthetic
     from casualhdrsplat_torch.models import image_formation as imf
+    from casualhdrsplat_torch.ops import crf_fused
     from casualhdrsplat_torch.ops import rasterize_dense as rd
     from casualhdrsplat_torch.ops import rasterize_packed as rp
 
@@ -1903,10 +2338,22 @@ def main() -> int:
     kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, rd.FWD_KERNEL, rd.BWD_KERNEL)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        for future in [pool.submit(k.load) for k in kernels]:
+        futures = [pool.submit(k.load) for k in kernels]
+        # meanwhile Triton compiles T1 at the hidden widths the paths use
+        # (32: the models; 8: entry() and the small checks)
+        t1_compile = time.perf_counter()
+        with uncounted():
+            for hidden in (32, 8):
+                x = torch.rand((1000, 3), device=device, requires_grad=True)
+                p = [torch.rand(shape, device=device) for shape in ((3, hidden),) * 3 + ((3,),) * 2]
+                crf_fused.monotone_crf(x, *p, -10.0, 4.0).sum().backward()
+        torch.cuda.synchronize()
+        t1_compile = time.perf_counter() - t1_compile
+        for future in futures:
             future.result()
     log(f"built {', '.join(k.library_path.name for k in kernels)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s; Triton compiled T1 (crf_fused, forward and "
+        f"backward at 32 and 8 units) in {t1_compile:.2f} s")
     for k in kernels:
         for line in k.build_log().splitlines():
             if "registers" in line or "spill" in line:
@@ -1930,10 +2377,12 @@ def main() -> int:
     # -- the main path: serve requests, counts zeroed just before ------------
     torch.cuda.reset_peak_memory_stats()
     rp.FWD_KERNEL.launches = 0
-    frame_s, pose_s = [], []
+    crf_fused.FWD_KERNEL.launches = crf_fused.BWD_KERNEL.launches = 0
+    frame_s, pose_s, eager_out = [], [], {}
     with torch.inference_mode():
         for fid in range(3):
             out, dt = timed(lambda: imf.render_frame(params, scene, fid, cfg))
+            eager_out[fid] = out.blurred_ldr
             frame_s.append(dt)
             check_image(f"frame {fid} blurred", out.blurred_ldr, (SIZE, SIZE, 3), 0.0, 1.0)
             check_image(f"frame {fid} hdr", out.sharp_hdr,
@@ -1948,18 +2397,22 @@ def main() -> int:
                     lambda: imf.render_pose(params, scene, vm, cfg, exposure=exposure,
                                             hdr_output=hdr))
                 pose_s.append(dt)
+                eager_out[a, hdr] = img
                 check_image(f"pose {a} {'hdr' if hdr else 'ldr'}", img, (SIZE, SIZE, 3),
                             0.0, None if hdr else 1.0)
                 log(f"render_pose(angle={a}, hdr={hdr}): {dt * 1e3:.2f} ms, dropped "
                     f"{int(aux.num_dropped)}")
+    renders = graphed_serving(params, scene, cfg, pose_vms, angles, exposure, eager_out)
     launches = rp.FWD_KERNEL.launches
     pose_launches = launches - frame_launches
     log(f"serving: render_frame median {np.median(frame_s) * 1e3:.2f} ms, "
         f"render_pose median {np.median(pose_s) * 1e3:.2f} ms, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"launches of {rp.FWD_KERNEL.symbol}: {frame_launches} on the shared branch "
-        f"(3 render_frame), {pose_launches} on the per-view branch (6 render_pose)")
-    if frame_launches < 3 or pose_launches < 6:
+        f"(3 render_frame), {pose_launches} after them (6 render_pose on the per-view "
+        f"branch; through the graphs 3 render_frame and 9 render_pose, and 3 eager depth "
+        f"views)")
+    if frame_launches != 3 or pose_launches != 21:
         raise AssertionError("the compositor kernel was not launched on both branches")
 
     # -- kernels against their plain versions, timed -------------------------
@@ -1982,17 +2435,30 @@ def main() -> int:
             rp, "composite_stream", lambda: imf.render_frame(params, scene, 1, cfg16))
         measure_compositor("render_frame_16x16", frame16_call, 1, reps=20)
         del frame16_call
-        if "--profile" in sys.argv[1:]:
-            profile_window("render_frame", lambda: imf.render_frame(params, scene, 1, cfg))
-            profile_window("render_pose", lambda: imf.render_pose(
-                params, scene, pose_vms[1], cfg, exposure=exposure))
+
+        # T1 on the inputs a request gives it
+        t1_frame = measure_crf_forward("render_frame", max(capture_calls(
+            crf_fused, "_forward_cuda", lambda: imf.render_frame(params, scene, 1, cfg)),
+            key=lambda a: a[0].shape[0]), reps=20)
+        measure_crf_forward("render_pose", capture_calls(
+            crf_fused, "_forward_cuda", lambda: imf.render_pose(
+                params, scene, pose_vms[1], cfg, exposure=exposure))[0], reps=20)
+
+        eager_and_graphed(
+            "packed render_frame", lambda: imf.render_frame(params, scene, 1, cfg).blurred_ldr,
+            lambda: renders.render_frame_blurred(params, scene, 1, cfg))
+        eager_and_graphed(
+            "packed render_pose",
+            lambda: imf.render_pose(params, scene, pose_vms[1], cfg, exposure=exposure),
+            lambda: renders.render_pose(params, scene, pose_vms[1], cfg, exposure=exposure))
+    del renders
 
     serve_launches = launches
     dense_serve_launches, res_dense_fwd = dense_serving_phase(
         device, cfg, scene, params, pose_vms, exposure, rd)
     del params
     dataset = make_training_data(device)
-    train_fwd_launches, train_bwd_launches, res_bwd = train_phase(device, dataset, rp)
+    train_fwd_launches, train_bwd_launches, res_bwd, t1_step = train_phase(device, dataset, rp)
     dense_fwd_launches, dense_bwd_launches, res_dense_bwd = dense_train_phase(
         device, dataset, rd)
     torch.cuda.empty_cache()
@@ -2007,11 +2473,15 @@ def main() -> int:
     quality_fwd_launches, quality_bwd_launches, _ = quality_phase(device, rp)
     bench_fwd_launches, bench_bwd_launches = bench_phase(device, rp)
     entry_fwd_launches = entry_phase(device, rp)
+    t1_launches = crf_fused.FWD_KERNEL.launches + crf_fused.BWD_KERNEL.launches
+    log(f"T1 launches on the main path: forward {crf_fused.FWD_KERNEL.launches}, backward "
+        f"{crf_fused.BWD_KERNEL.launches} (the sharded phase's second rank not counted)")
     bench_shapes(device)
     with torch.inference_mode():
         small_slice_check(device)
     small_train_step_check(device)
     small_dense_train_check(device)
+    row_bounds_check(device)
 
     kernels_line = [
         # each forward kernel is launched by its path's requests and steps
@@ -2026,7 +2496,14 @@ def main() -> int:
                      dense_serve_launches + dense_fwd_launches + sharded["B3"], res_dense_fwd),
         kernel_entry("rasterize_dense_bwd", "rasterize_pallas.py:185",
                      dense_bwd_launches + sharded["B4"], res_dense_bwd),
+        # T1 stands for XLA's fusion of the CRF chain: no pallas_call there
+        dict(kernel_entry("crf_fused", "", t1_launches, t1_frame), route="triton",
+             source="casualhdrsplat_torch/ops/crf_fused.py",
+             replaces="casualhdrsplat_tpu/models/crf.py:132"),
     ]
+    log(f"T1 on the training step's inputs: forward {json.dumps(t1_step[0])}, backward "
+        f"{json.dumps(t1_step[1])}")
+    log("eager and graphed windows: " + json.dumps(WINDOWS))
     log(json.dumps({"kernels": kernels_line}))
     log(smi)  # as nvidia-smi gives them, on a line of its own
     print(json.dumps({"ok": True, "device": {

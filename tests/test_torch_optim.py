@@ -2,8 +2,8 @@
 `zero_state_at`) against the reference's optax.multi_transform, and
 `convert.opt_state_from_jax`.
 
-Tolerances: learning rates rtol 1e-6 (the port evaluates a schedule in
-Python floats, optax in float32); parameters and moments after N updates
+Tolerances: learning rates rtol 1e-6 (both evaluate a schedule in
+float32, with their own pow); parameters and moments after N updates
 from the same gradients atol 1e-6 * scale + rtol 2e-5, scale = the
 leaf's largest magnitude: two Adam implementations that round the bias
 corrections and the square root at different places."""

@@ -82,11 +82,9 @@ def _port_dataset(seed):
                                             exposure_range=(0.3, 0.5), device="cpu")
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["dense", "packed"])
-def pair(request):
-    """(reference trainer, port trainer) on one dataset and one parameter
-    set, with visibly opaque splats."""
-    packed = request.param
+def make_pair(packed: bool):
+    """(reference trainer, port trainer, the reference's realigner) on one
+    dataset and one parameter set, with visibly opaque splats."""
     ds_t = _port_dataset(7)
     ds_j = j_dataset.Dataset(**{f.name: getattr(ds_t, f.name)
                                 for f in dataclasses.fields(t_dataset.Dataset)})
@@ -99,6 +97,11 @@ def pair(request):
     # the reference's realigner compiles once and serves every frame
     realign_j = j_pa.make_window_realigner(tj.cfg.model, steps=STEPS, lr=REALIGN_LR)
     return tj, tt, realign_j
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["dense", "packed"])
+def pair(request):
+    return make_pair(request.param)
 
 
 def _close_delta(got, ref, lr):
@@ -135,6 +138,10 @@ def _window(scene_j, params_j, frame):
 
 @pytest.mark.parametrize("frame", [0, 3], ids=["start", "end"])
 def test_window_realigner_matches_reference(pair, frame):
+    check_window_realigner(pair, frame)
+
+
+def check_window_realigner(pair, frame):
     tj, tt, realign_j = pair
     lr = REALIGN_LR
     idx = _window(tj.scene, tj.params, frame)

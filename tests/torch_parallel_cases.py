@@ -53,8 +53,11 @@ def model_cfg(mod, n_views: int, branch: str):
 
 
 def _numpy_tree(tree):
+    """A copy of `tree` on the host: the trainer writes its tensors in place."""
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
     return tree.detach().cpu().numpy().copy() if isinstance(tree, torch.Tensor) else tree
 
 
