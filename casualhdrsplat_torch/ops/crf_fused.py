@@ -1,5 +1,5 @@
 """The CRF's monotone MLP as one fused pass, forward and backward (kernel
-T1, Triton).
+T1, CUDA C++ for sm_90a: csrc/crf_mlp_fwd.cu and csrc/crf_mlp_bwd.cu).
 
 Counterpart of casualhdrsplat_tpu/models/crf.py::apply with kind "mlp"
 (`_norm_log` and `_monotone_mlp`, :132).  The reference has no Pallas
@@ -19,8 +19,9 @@ them there).  The backward saves only the input, recomputes the units and
 returns d x per element and d(k, c, w) [3, H], d(g, bias) [3].
 
 `monotone_crf` is differentiable in x and the five parameters:
-- on CUDA tensors the forward and backward launch the Triton kernels
-  `_crf_fwd` and `_crf_bwd` + `_col_sum` (or they raise);
+- on CUDA tensors the forward launches `chs_crf_mlp_fwd` and the backward
+  `chs_crf_mlp_bwd` (its kernel and the fixed-order sum of its partial
+  rows, counted as one launch), or they raise;
 - on CPU tensors they run `monotone_crf_reference` (the plain chain of
   models/crf.py, the same operations in the same order) and
   `monotone_crf_backward_reference`, the closed-form backward the kernel
@@ -32,169 +33,84 @@ bound (so d out / d x at x = 0 carries a factor 0.5, and an output
 exactly at 0 or 1 passes half its gradient), where `torch.clamp`'s
 autograd passes the whole gradient there.
 
-Why Triton and not CUDA C++: a pointwise pass over [B, 3] with a loop of
-H <= 64 units in registers and a reduction of the parameter gradients over
-B; nothing needs shared-memory staging or tensor cores.
-
-What bounds it on an H100.  The forward reads and writes 12 bytes a pixel
-and evaluates 3 H sigmoids a pixel (one exp and one reciprocal each, on
-the special-function units, a sixteenth of the fp32 lanes); the backward
-reads 24 and writes 12 bytes a pixel and evaluates the same sigmoids
-again.  Both are bound by arithmetic, not by bytes.  Design: a program
-takes one channel of BLOCK_P pixels as a [BLOCK_P, H] tile; the channel's
-parameters are [H] vectors in registers.  The backward's programs stride
-over the pixels with per-thread accumulators and write one row of partial
-sums each; `_col_sum` adds the rows in a fixed order.  No float atomics:
-two launches on the same input give the same bits.
+What bounds it on an H100: each unit's exp and reciprocal run on the
+special-function units, 16 results a clock per SM against 128 fp32 FMAs
+(an eighth of the rate), and they, not the bytes (12 read and 12 written a
+pixel forward), set the pace.  The forward shares one reciprocal among
+four units; the backward splits an element's units over a group of lanes.
+The sources say how.  Both grids are persistent, a fixed number of blocks
+per SM (fewer for a small call), so the backward's partial sums, and the
+bits of the parameter gradients, depend on the input and the card alone:
+no float atomics.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
-from casualhdrsplat_torch.ops.cuda_build import register_counter
+from casualhdrsplat_torch.ops.cuda_build import CudaKernel
 
 _EPS = 1e-8
-# programs a channel of the backward strides over the pixels with: a fixed
-# number (a few per SM of an H100), so that the partial sums, and so the
-# bits of the parameter gradients, depend on the input alone
-_BWD_PROGRAMS = 192
 _MAX_HIDDEN = 64
+# The grids: the .cu's kBlocksPerSM blocks per SM, fewer where the pixels
+# fill fewer.  A forward block takes 256 threads x 2 pixels a pass; a
+# backward block has 2 warps a channel, with `_bwd_lanes` lanes an element
+# (16 units a lane): 64 / lanes pixels a pass.
+_FWD_BLOCKS_PER_SM, _FWD_BLOCK_PIXELS = 4, 256 * 2
+_BWD_BLOCKS_PER_SM, _BWD_WARPS_PER_CHANNEL, _BWD_UNITS_PER_LANE = 2, 2, 16
 
-
-class TritonKernel:
-    """Launch count of one Triton kernel of this module; `launches` is a
-    plain integer that a caller may reset."""
-
-    def __init__(self, symbol: str):
-        self.symbol = symbol
-        self.launches = 0
-        register_counter(self)
-
-
-FWD_KERNEL = TritonKernel("crf_fused_fwd")
-# the backward pass: `_crf_bwd` and its fixed-order `_col_sum`, counted once
-BWD_KERNEL = TritonKernel("crf_fused_bwd")
-
-_KERNELS = None
-
-
-def _kernels():
-    """Define the Triton kernels at first use (never at import: the CPU has
-    no triton).  Triton resolves the names a kernel uses in its module's
-    globals, so the kernels, their helper and `tl` are bound there."""
-    global _KERNELS, triton, tl, _unit_sigmoids, _crf_fwd, _crf_bwd, _col_sum
-    if _KERNELS is not None:
-        return _KERNELS
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _unit_sigmoids(u, k, c):
-        d = u[:, None] - c[None, :]
-        s = 1.0 / (1.0 + tl.exp(-(k[None, :] * d)))
-        return d, s
-
-    @triton.jit
-    def _crf_fwd(x_ptr, k_ptr, c_ptr, w_ptr, g_ptr, b_ptr, out_ptr, n_pix, log_min, span,
-                 H: tl.constexpr, HP: tl.constexpr, BLOCK_P: tl.constexpr):
-        # program 3 b + ch: channel ch of pixel block b (a 1-D grid: a frame's
-        # blocks overflow the 65,535 of a grid's second axis)
-        ch = tl.program_id(0) % 3
-        pix = (tl.program_id(0) // 3) * BLOCK_P + tl.arange(0, BLOCK_P)
-        pm = pix < n_pix
-        j = tl.arange(0, HP)
-        jm = j < H
-        k = tl.load(k_ptr + ch * H + j, mask=jm, other=0.0)
-        c = tl.load(c_ptr + ch * H + j, mask=jm, other=0.0)
-        w = tl.load(w_ptr + ch * H + j, mask=jm, other=0.0)  # 0: padded units add nothing
-        g = tl.load(g_ptr + ch)
-        bias = tl.load(b_ptr + ch)
-        x = tl.load(x_ptr + pix * 3 + ch, mask=pm, other=0.0)
-        u = (tl.log(tl.maximum(x, 0.0) + 1e-8) - log_min) / span
-        _, s = _unit_sigmoids(u, k, c)
-        y = tl.sum(w[None, :] * s, axis=1) + g * u + bias
-        out = (1.0 / (1.0 + tl.exp(-y))) * 1.004 - 0.002
-        tl.store(out_ptr + pix * 3 + ch, tl.minimum(tl.maximum(out, 0.0), 1.0), mask=pm)
-
-    @triton.jit
-    def _crf_bwd(x_ptr, go_ptr, k_ptr, c_ptr, w_ptr, g_ptr, b_ptr, dx_ptr, part_ptr, n_pix,
-                 log_min, span, H: tl.constexpr, HP: tl.constexpr, BLOCK_P: tl.constexpr):
-        ch = tl.program_id(0) % 3
-        pid = tl.program_id(0) // 3
-        nprog = tl.num_programs(0) // 3
-        j = tl.arange(0, HP)
-        jm = j < H
-        k = tl.load(k_ptr + ch * H + j, mask=jm, other=0.0)
-        c = tl.load(c_ptr + ch * H + j, mask=jm, other=0.0)
-        w = tl.load(w_ptr + ch * H + j, mask=jm, other=0.0)
-        g = tl.load(g_ptr + ch)
-        bias = tl.load(b_ptr + ch)
-        acc_k = tl.zeros((BLOCK_P, HP), dtype=tl.float32)
-        acc_c = tl.zeros((BLOCK_P, HP), dtype=tl.float32)
-        acc_w = tl.zeros((BLOCK_P, HP), dtype=tl.float32)
-        acc_g = tl.zeros((BLOCK_P,), dtype=tl.float32)
-        acc_b = tl.zeros((BLOCK_P,), dtype=tl.float32)
-        for start in range(pid * BLOCK_P, n_pix, nprog * BLOCK_P):
-            pix = start + tl.arange(0, BLOCK_P)
-            pm = pix < n_pix
-            x = tl.load(x_ptr + pix * 3 + ch, mask=pm, other=1.0)
-            go = tl.load(go_ptr + pix * 3 + ch, mask=pm, other=0.0)
-            # max(x, 0): half the gradient at the tie, as jnp.maximum
-            de = tl.where(x > 0.0, 1.0, tl.where(x == 0.0, 0.5, 0.0))
-            ee = tl.maximum(x, 0.0) + 1e-8
-            u = (tl.log(ee) - log_min) / span
-            d, s = _unit_sigmoids(u, k, c)
-            y = tl.sum(w[None, :] * s, axis=1) + g * u + bias
-            sy = 1.0 / (1.0 + tl.exp(-y))
-            o = sy * 1.004 - 0.002
-            # clip(o, 0, 1): half the gradient at either bound, as jnp.clip
-            dq = tl.where((o > 0.0) & (o < 1.0), 1.0,
-                          tl.where((o == 0.0) | (o == 1.0), 0.5, 0.0))
-            t = go * dq * 1.004 * (sy * (1.0 - sy))
-            ws = w[None, :] * (s * (1.0 - s))
-            tt = t[:, None]
-            acc_w += tt * s
-            acc_k += tt * ws * d
-            acc_c -= tt * ws * k[None, :]
-            acc_g += t * u
-            acc_b += t
-            dydu = tl.sum(ws * k[None, :], axis=1) + g
-            tl.store(dx_ptr + pix * 3 + ch, t * dydu / (ee * span) * de, mask=pm)
-        # this program's partial sums: row pid, channel ch, [dk | dc | dw | dg, db]
-        row = part_ptr + (pid * 3 + ch) * (3 * HP + 2)
-        tl.store(row + j, tl.sum(acc_k, axis=0), mask=jm)
-        tl.store(row + HP + j, tl.sum(acc_c, axis=0), mask=jm)
-        tl.store(row + 2 * HP + j, tl.sum(acc_w, axis=0), mask=jm)
-        tl.store(row + 3 * HP, tl.sum(acc_g, axis=0))
-        tl.store(row + 3 * HP + 1, tl.sum(acc_b, axis=0))
-
-    @triton.jit
-    def _col_sum(part_ptr, out_ptr, n_rows, n_cols, BLOCK_R: tl.constexpr,
-                 BLOCK_C: tl.constexpr):
-        """out[col] = sum over rows of part[row, col], rows in a fixed order."""
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cm = cols < n_cols
-        acc = tl.zeros((BLOCK_R, BLOCK_C), dtype=tl.float32)
-        for r0 in range(0, n_rows, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            acc += tl.load(part_ptr + rows[:, None] * n_cols + cols[None, :],
-                           mask=(rows < n_rows)[:, None] & cm[None, :], other=0.0)
-        tl.store(out_ptr + cols, tl.sum(acc, axis=0), mask=cm)
-
-    _KERNELS = (triton, _crf_fwd, _crf_bwd, _col_sum)
-    return _KERNELS
+FWD_KERNEL = CudaKernel(
+    "crf_mlp_fwd.cu", "chs_crf_mlp_fwd",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+)
+# the backward pass: its kernel and the fixed-order column sum, counted once
+BWD_KERNEL = CudaKernel(
+    "crf_mlp_bwd.cu", "chs_crf_mlp_bwd",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+)
 
 
 def _padded_hidden(h: int) -> int:
-    return max(1 << (h - 1).bit_length(), 2)
+    """The kernels' unit count: 8, 16, 32 or 64 (padded units have w = 0)."""
+    return max(1 << (h - 1).bit_length(), 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _fwd_blocks(n: int, sms: int) -> int:
+    return min(sms * _FWD_BLOCKS_PER_SM, -(-n // _FWD_BLOCK_PIXELS))
+
+
+def _bwd_lanes(hp: int) -> int:
+    """The lanes of the backward that share an element at hp units."""
+    return max(hp // _BWD_UNITS_PER_LANE, 1)
+
+
+def _bwd_blocks(n: int, hp: int, sms: int) -> int:
+    """The backward's grid, and so its partial rows, for n pixels: a
+    function of n only below sms x _BWD_BLOCKS_PER_SM blocks' first pass."""
+    return min(sms * _BWD_BLOCKS_PER_SM, -(-n // (_BWD_WARPS_PER_CHANNEL * 32 // _bwd_lanes(hp))))
+
+
+def _split_total(total: torch.Tensor, h: int, hp: int):
+    """The backward's summed row per channel [3, 3 hp + 2] as (d k, d c,
+    d w [3, H], d g, d bias [3])."""
+    return (total[:, :h], total[:, hp:hp + h], total[:, 2 * hp:2 * hp + h], total[:, 3 * hp],
+            total[:, 3 * hp + 1])
 
 
 def _check(x, params):
     if x.shape[-1] != 3:
         raise ValueError(f"the CRF takes [..., 3] images, got {tuple(x.shape)}")
+    if x.numel() >= 2**31:
+        raise ValueError(f"the fused CRF takes fewer than 2^31 elements, got {x.numel()}")
     h = params[0].shape[-1]
     if h > _MAX_HIDDEN:
         raise ValueError(f"the fused CRF takes up to {_MAX_HIDDEN} units, got {h}")
@@ -209,39 +125,38 @@ def _check(x, params):
         raise TypeError(f"the CRF takes float32 images, got {x.dtype}")
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _forward_cuda(x, k, c, w, g, bias, log_min: float, span: float) -> torch.Tensor:
-    """Launch `_crf_fwd` on x [B, 3] (contiguous): the LDR image [B, 3]."""
-    _, fwd, _, _ = _kernels()
+    """Launch the forward kernel on x [B, 3] and the parameters (contiguous
+    CUDA tensors): the LDR image [B, 3].  An empty x launches nothing."""
     n, h = x.shape[0], k.shape[1]
-    hp = _padded_hidden(h)
-    block = max(2048 // hp, 16)
     out = torch.empty_like(x)
     if n:
-        fwd[(3 * -(-n // block),)](x, k, c, w, g, bias, out, n, log_min, span,
-                                   H=h, HP=hp, BLOCK_P=block, num_warps=4)
-    FWD_KERNEL.launches += 1
+        FWD_KERNEL(x.data_ptr(), k.data_ptr(), c.data_ptr(), w.data_ptr(), g.data_ptr(),
+                   bias.data_ptr(), out.data_ptr(), n, h, _padded_hidden(h),
+                   _fwd_blocks(n, _sm_count(x.device.index)), log_min, span, _stream(x))
     return out
 
 
 def _backward_cuda(x, go, k, c, w, g, bias, log_min: float, span: float):
-    """Launch `_crf_bwd` and `_col_sum`: (d x [B, 3], d k, d c, d w [3, H],
-    d g, d bias [3])."""
-    _, _, bwd, col_sum = _kernels()
+    """Launch the backward kernel and its column sum: (d x [B, 3], d k, d c,
+    d w [3, H], d g, d bias [3]).  An empty x launches nothing: zero
+    parameter gradients."""
     n, h = x.shape[0], k.shape[1]
     hp = _padded_hidden(h)
-    block = max(1024 // hp, 16)
-    progs = max(1, min(_BWD_PROGRAMS, -(-n // block)))
-    width = 3 * hp + 2
     dx = torch.empty_like(x)
-    part = torch.empty((progs, 3, width), dtype=torch.float32, device=x.device)
-    total = torch.empty((3, width), dtype=torch.float32, device=x.device)
-    bwd[(3 * progs,)](x, go, k, c, w, g, bias, dx, part, n, log_min, span,
-                      H=h, HP=hp, BLOCK_P=block, num_warps=4)
-    col_sum[(-(-3 * width // 128),)](part, total, progs, 3 * width, BLOCK_R=32,
-                                     BLOCK_C=128, num_warps=4)
-    BWD_KERNEL.launches += 1
-    return (dx, total[:, :h], total[:, hp:hp + h], total[:, 2 * hp:2 * hp + h],
-            total[:, 3 * hp], total[:, 3 * hp + 1])
+    total = (torch.empty if n else torch.zeros)((3, 3 * hp + 2), dtype=torch.float32,
+                                                device=x.device)
+    if n:
+        blocks = _bwd_blocks(n, hp, _sm_count(x.device.index))
+        part = torch.empty((blocks, 3, 3 * hp + 2), dtype=torch.float32, device=x.device)
+        BWD_KERNEL(x.data_ptr(), go.data_ptr(), k.data_ptr(), c.data_ptr(), w.data_ptr(),
+                   g.data_ptr(), bias.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                   total.data_ptr(), n, h, hp, blocks, log_min, span, _stream(x))
+    return (dx, *_split_total(total, h, hp))
 
 
 def monotone_crf_reference(x, k, c, w, g, bias, log_min: float, log_max: float):

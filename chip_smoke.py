@@ -5,8 +5,11 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
-   started together, sm_90a) and prints ptxas's register and spill lines;
-   meanwhile Triton compiles kernel T1 (ops/crf_fused.py, the CRF MLP).
+   started together, sm_90a: B1-B4 and both halves of kernel T1, the CRF
+   MLP of ops/crf_fused.py) and prints ptxas's register and spill lines;
+   then T1's instruction mix per element from its SASS (cuobjdump) and the
+   least time its MUFU pipes and issue slots need for a frame, and T1 at
+   64 units against its plain versions.
 3. Packed serving at the full width of the ladder4-full model
    (ModelConfig() defaults: 131,072 Gaussians, SH degree 3, 8 virtual
    views, MLP CRF with 32 units, 16x128 tiles, chunk 128, shared binning)
@@ -83,7 +86,8 @@
    also at the same frame on 16x16 tiles and at bench.py::build's shapes
    (16x16 tiles, 4 views, 100k Gaussians), beside its plain version and its
    bound; T1 against its plain versions (forward atol T1_ATOL, backward at
-   the backward tolerance, two launches equal to the bit) on a frame's, a
+   the backward tolerance with the clip's ties exempt, two launches equal
+   to the bit) on a frame's, a
    pose's and a training step's inputs.  Prints the eager and the graphed
    walls and profiled busy shares of render_frame, render_pose, both
    training steps and bench's step, all from this run.
@@ -449,21 +453,29 @@ def measure_gradient(label, kernel, plain, g4, work, nbytes, p, reps, determinis
 
 
 # Kernel T1 (ops/crf_fused.py), held against its plain versions: forward
-# atol T1_ATOL (Triton's exp, log and division are the approximate hardware
-# ones, a few ulp each, and the H units are summed in another order), the
-# backward's groups at the backward tolerance above, two launches equal to
-# the bit.  Its fp32 operations, for the bound: per (pixel, channel, unit)
-# the forward evaluates u - c, k d, -z, exp, 1 +, the reciprocal, w s and
+# atol T1_ATOL (exp2, rcp and the backward's log2 are the approximate
+# hardware ones, a few ulp each; the forward shares a reciprocal among four
+# units and the H units are summed in another order), the backward's
+# groups at the backward tolerance above (the clip's ties exempt), two
+# launches equal to the bit.  Its fp32 operations, for the bound: per
+# (pixel, channel, unit) the forward evaluates u - c, k d, -z, exp, 1 +, the reciprocal, w s and
 # the sum (8); per (pixel, channel) the clamp, + eps, log, - log_min, the
 # division, g u +, + bias, the output sigmoid (4), the stretch (2) and the
 # clip (2) = 16.  The backward recomputes the units (6), s (1 - s) (2),
 # w s' (1), the three accumulations (2 + 3 + 3) and d y / d u (2) = 19 a
 # unit, and per element the forward's 16 plus the two clamps' subgradients
 # (6), t (4), the g and bias sums (3) and d x (5) = 34.  exp and the
-# reciprocal run on the special-function units at a sixteenth of the fp32
-# rate; the table's fp32 peak charges them as any fp32 operation.
+# reciprocal run on the special-function units (MUFU), 16 results a clock
+# per SM against 128 fp32 FMAs on compute capability 9.0, an eighth of the
+# rate; the table's fp32 peak charges them as any fp32 operation, so each
+# measurement also logs the MUFU and issue floors of the built kernel's
+# instruction mix (T1_MIX, from its SASS).
 T1_ATOL = 1e-5
 T1_FWD_UNIT_OPS, T1_FWD_ELEM_OPS, T1_BWD_UNIT_OPS, T1_BWD_ELEM_OPS = 8, 16, 19, 34
+# ("fwd" or "bwd", padded units) -> instructions per element by class, from
+# the built kernels' SASS; and the card's SMs and top SM clock (Hz)
+T1_MIX: dict = {}
+CARD_RATE = {}
 
 
 class uncounted:
@@ -501,7 +513,8 @@ def measure_crf_forward(label, call, reps):
     bound_ms, bound_by = roofline(2 * n * 4 + 4 * (3 * k.numel() + 6),
                                   n * (T1_FWD_UNIT_OPS * h + T1_FWD_ELEM_OPS))
     res = dict(label=label, pixels=x.shape[0], hidden=h, max_abs_err=err, atol=T1_ATOL,
-               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               **t1_floors("fwd", h, n))
     log(f"crf_fused forward[{label}]: " + json.dumps(res))
     if not err <= T1_ATOL:
         raise AssertionError(f"crf_fused forward[{label}]: max abs err {err} > {T1_ATOL}")
@@ -513,22 +526,44 @@ def measure_crf_backward(label, call, reps):
     call of its launcher (x, the upstream gradient, k, c, w, g, bias,
     log_min, span): every group at the backward tolerance, two launches
     equal to the bit, times, bound (x and the upstream gradient read, d x
-    written, 12 bytes a pixel each)."""
+    written, 12 bytes a pixel each).
+
+    At an element whose output before the clip lies within float32
+    rounding of 0 or 1 the clip's subgradient switches, and kernel and
+    plain version may each take either side.  Every element adds its own term to the gradients, linear in
+    its upstream gradient, so where the two disagree they must agree once
+    the upstream gradient is zeroed at those elements
+    (crf_compare.clip_ties): only the ties' terms are exempt, as the
+    compositors' threshold ties are."""
     import torch
 
+    from casualhdrsplat_torch.crf_compare import clip_ties
     from casualhdrsplat_torch.ops import crf_fused
 
     x, go, k, c, w, g, bias, log_min, span = call
+    names = ("x", "k", "c", "w", "g", "bias")
     with uncounted(), torch.no_grad():
         got = crf_fused._backward_cuda(*call)
         again = crf_fused._backward_cuda(*call)
         ref = crf_fused.monotone_crf_backward_reference(x, go, k, c, w, g, bias, log_min,
                                                         log_min + span)
-        errs = {}
-        for name, a, b, r in zip(("x", "k", "c", "w", "g", "bias"), got, again, ref):
+        errs, outliers = {}, 0
+        for name, a, b, r in zip(names, got, again, ref):
             if not torch.equal(a, b):
                 raise AssertionError(f"crf_fused backward[{label}]: two launches differ in {name}")
-            errs[name] = grads_close(f"crf_fused backward[{label}] d{name}", a, r)
+            errs[name], n_out = grad_outliers(a.reshape(r.shape), r, float(r.abs().max()))
+            outliers += n_out
+        ties, errs_off_ties = 0, errs
+        if outliers:
+            tie = clip_ties(x, k, c, w, g, bias, log_min, span)
+            ties, off = int(tie.sum()), go * ~tie
+            got = crf_fused._backward_cuda(x, off, k, c, w, g, bias, log_min, span)
+            ref = crf_fused.monotone_crf_backward_reference(x, off, k, c, w, g, bias, log_min,
+                                                            log_min + span)
+            errs_off_ties = {name: grads_close(
+                f"crf_fused backward[{label}] d{name}, the clip's {ties} ties zeroed", a, r)
+                for name, a, r in zip(names, got, ref)}
+        del got, again, ref
         ms = event_ms(lambda: crf_fused._backward_cuda(*call), reps)
         plain_ms = event_ms(lambda: crf_fused.monotone_crf_backward_reference(
             x, go, k, c, w, g, bias, log_min, log_min + span), max(2, reps // 10), warmup=1)
@@ -536,8 +571,10 @@ def measure_crf_backward(label, call, reps):
     bound_ms, bound_by = roofline(3 * n * 4 + 4 * 2 * (3 * k.numel() + 6),
                                   n * (T1_BWD_UNIT_OPS * h + T1_BWD_ELEM_OPS))
     res = dict(label=label, pixels=x.shape[0], hidden=h, max_abs_err=max(errs.values()),
-               max_abs_err_by_group=errs, deterministic=True, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by)
+               max_abs_err_by_group=errs, outliers=outliers, clip_ties=ties,
+               max_abs_err_off_ties=errs_off_ties, deterministic=True, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               **t1_floors("bwd", h, n))
     log(f"crf_fused backward[{label}]: " + json.dumps(res))
     return res
 
@@ -551,6 +588,66 @@ def measure_crf_step(label, run):
     fwd = max(capture_calls(crf_fused, "_forward_cuda", run), key=lambda a: a[0].shape[0])
     bwd = max(capture_calls(crf_fused, "_backward_cuda", run), key=lambda a: a[0].shape[0])
     return measure_crf_forward(label, fwd, reps=10), measure_crf_backward(label, bwd, reps=10)
+
+
+def t1_floors(direction, hidden, elements):
+    """The MUFU and issue floors of T1's built kernel for this many
+    elements, from its SASS instruction mix."""
+    from casualhdrsplat_torch.ops import crf_fused
+    from casualhdrsplat_torch.utils import sass
+
+    mix = T1_MIX[direction, crf_fused._padded_hidden(hidden)]
+    return sass.floors_ms(mix, elements, CARD_RATE["sms"], CARD_RATE["clock_hz"])
+
+
+def t1_instruction_mix():
+    """T1's instructions per element by class, read from the SASS of its
+    built kernels at every padded width, into T1_MIX; logged per element,
+    per element-unit and as a frame's MUFU and issue floors."""
+    import subprocess
+
+    import torch
+
+    from casualhdrsplat_torch.crf_compare import cuda_passes
+    from casualhdrsplat_torch.ops import crf_fused
+    from casualhdrsplat_torch.utils import sass
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    CARD_RATE.update(sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                     clock_hz=float(smi.stdout.split()[0]) * 1e6)
+    frame = 3 * 8 * SIZE * SIZE
+    for direction, kernel in (("fwd", crf_fused.FWD_KERNEL), ("bwd", crf_fused.BWD_KERNEL)):
+        funcs = sass.functions(kernel.library_path)
+        for hp in (8, 16, 32, 64):
+            (name, (per_pass, trips)), = [
+                item for item in cuda_passes(hp).items() if f"_{direction}_" in item[0]]
+            T1_MIX[direction, hp] = mix = sass.element_mix(sass.find(funcs, name), per_pass,
+                                                           trips)
+            log(f"T1 {direction} SASS at {hp} units, per element: "
+                + json.dumps({k: round(v, 3) for k, v in mix.items()})
+                + f"; per element-unit: MUFU {sum(v for k, v in mix.items() if 'MUFU' in k) / hp:.3f}, "
+                f"all {mix['all'] / hp:.3f}; a frame's floors: "
+                + json.dumps(sass.floors_ms(mix, frame, CARD_RATE["sms"], CARD_RATE["clock_hz"])))
+
+
+def crf_hidden64_check(device):
+    """T1 at 64 units (the widest the kernels take) against its plain
+    versions on 100,000 pixels: forward atol T1_ATOL, backward at the
+    backward tolerance, two backward launches equal to the bit."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p = [F.softplus(torch.randn((3, 64), device=device, generator=gen) * 0.5) * 20.0,
+         torch.rand((3, 64), device=device, generator=gen),
+         F.softplus(torch.randn((3, 64), device=device, generator=gen) - 1.0),
+         F.softplus(torch.randn(3, device=device, generator=gen)),
+         torch.randn(3, device=device, generator=gen)]
+    x = torch.exp(torch.rand((100_000, 3), device=device, generator=gen) * 16.0 - 11.0)
+    go = torch.randn(x.shape, device=device, generator=gen)
+    measure_crf_forward("hidden_64", (x, *p, -10.0, 14.0), reps=5)
+    measure_crf_backward("hidden_64", (x, go, *p, -10.0, 14.0), reps=5)
 
 
 def _stream_meta(stream, lo, hi, statics):
@@ -2335,29 +2432,20 @@ def main() -> int:
 
     # -- build ---------------------------------------------------------------
     # one nvcc per source, all started together
-    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, rd.FWD_KERNEL, rd.BWD_KERNEL)
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, rd.FWD_KERNEL, rd.BWD_KERNEL,
+               crf_fused.FWD_KERNEL, crf_fused.BWD_KERNEL)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        futures = [pool.submit(k.load) for k in kernels]
-        # meanwhile Triton compiles T1 at the hidden widths the paths use
-        # (32: the models; 8: entry() and the small checks)
-        t1_compile = time.perf_counter()
-        with uncounted():
-            for hidden in (32, 8):
-                x = torch.rand((1000, 3), device=device, requires_grad=True)
-                p = [torch.rand(shape, device=device) for shape in ((3, hidden),) * 3 + ((3,),) * 2]
-                crf_fused.monotone_crf(x, *p, -10.0, 4.0).sum().backward()
-        torch.cuda.synchronize()
-        t1_compile = time.perf_counter() - t1_compile
-        for future in futures:
+        for future in [pool.submit(k.load) for k in kernels]:
             future.result()
     log(f"built {', '.join(k.library_path.name for k in kernels)} in "
-        f"{time.perf_counter() - t0:.2f} s; Triton compiled T1 (crf_fused, forward and "
-        f"backward at 32 and 8 units) in {t1_compile:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s")
     for k in kernels:
         for line in k.build_log().splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {k.source_name}: {line.strip()}")
+    t1_instruction_mix()
+    crf_hidden64_check(device)
 
     # -- the model and a warm-up request ------------------------------------
     (cfg, scene, params), t_setup = timed(lambda: build_model(device))
@@ -2473,9 +2561,9 @@ def main() -> int:
     quality_fwd_launches, quality_bwd_launches, _ = quality_phase(device, rp)
     bench_fwd_launches, bench_bwd_launches = bench_phase(device, rp)
     entry_fwd_launches = entry_phase(device, rp)
-    t1_launches = crf_fused.FWD_KERNEL.launches + crf_fused.BWD_KERNEL.launches
-    log(f"T1 launches on the main path: forward {crf_fused.FWD_KERNEL.launches}, backward "
-        f"{crf_fused.BWD_KERNEL.launches} (the sharded phase's second rank not counted)")
+    t1_launches = crf_fused.FWD_KERNEL.launches, crf_fused.BWD_KERNEL.launches
+    log(f"T1 launches on the main path: forward {t1_launches[0]}, backward {t1_launches[1]} "
+        f"(the sharded phase's second rank not counted)")
     bench_shapes(device)
     with torch.inference_mode():
         small_slice_check(device)
@@ -2496,11 +2584,16 @@ def main() -> int:
                      dense_serve_launches + dense_fwd_launches + sharded["B3"], res_dense_fwd),
         kernel_entry("rasterize_dense_bwd", "rasterize_pallas.py:185",
                      dense_bwd_launches + sharded["B4"], res_dense_bwd),
-        # T1 stands for XLA's fusion of the CRF chain: no pallas_call there
-        dict(kernel_entry("crf_fused", "", t1_launches, t1_frame), route="triton",
-             source="casualhdrsplat_torch/ops/crf_fused.py",
-             replaces="casualhdrsplat_tpu/models/crf.py:132"),
+        # T1 stands for XLA's fusion of the CRF chain (no pallas_call there):
+        # its forward on the frame's inputs, its backward on the step's
+        dict(kernel_entry("crf_mlp_fwd", "", t1_launches[0], t1_frame),
+             name="crf_fused", replaces="casualhdrsplat_tpu/models/crf.py:132"),
+        dict(kernel_entry("crf_mlp_bwd", "", t1_launches[1], t1_step[1]),
+             name="crf_fused_bwd", replaces="casualhdrsplat_tpu/models/crf.py:132"),
     ]
+    idle = [k["name"] for k in kernels_line if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     log(f"T1 on the training step's inputs: forward {json.dumps(t1_step[0])}, backward "
         f"{json.dumps(t1_step[1])}")
     log("eager and graphed windows: " + json.dumps(WINDOWS))
