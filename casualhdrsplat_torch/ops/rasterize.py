@@ -3,7 +3,8 @@ casualhdrsplat_tpu/ops/rasterize.py.  Two paths, chosen by the config:
 
 packed (`cfg.packed`, the default):
     projection -> (tile, depth) binning -> budget waterfill -> one row
-    gather into the depth-sorted payload stream -> streaming compositor
+    gather into the depth-sorted payload stream (ops/stream_gather.py,
+    whose transpose is kernel G1) -> streaming compositor
     (ops/rasterize_packed.py) -> tile reassembly
   With `shared_binning` and more than one view, one sort at the views'
   mean position serves every view (`_rasterize_packed_shared`); otherwise
@@ -38,7 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from casualhdrsplat_torch.config import RasterizeConfig
-from casualhdrsplat_torch.ops import binning, rasterize_packed
+from casualhdrsplat_torch.ops import binning, rasterize_packed, stream_gather
 from casualhdrsplat_torch.ops.composite import (
     CompositeStatics,
     composite_tile_lists,
@@ -157,29 +158,24 @@ def _rasterize_packed(projs, payload, width, height, cfg: RasterizeConfig, backg
     waterfilled to the stream budget (far tails dropped)."""
     v, n = projs.depths.shape
     s_budget = _stream_budget(n, cfg)
-    streams, segs, starts_cs, dropped, clipped = [], [], [], 0, 0
+    ids, segs, starts_cs, dropped, clipped = [], [], [], 0, 0
     for k in range(v):
         s_gauss, starts, seg_len, clip_k = binning.sorted_stream(
             projs.means2d[k], projs.radii[k], projs.depths[k], projs.valid[k],
             width, height, cfg.tile_h, cfg.tile_w, cfg.max_tiles_per_gaussian,
         )
         seg_c, starts_c = binning.waterfill_segments(seg_len, s_budget)
-        stream_ids = binning.compact_stream_ids(s_gauss, starts, starts_c, s_budget, n)
-        # the one row gather: payload rows in compacted stream order.
-        # index_select, whose transpose is index_add_: advanced indexing's
-        # transpose (index_put_ with accumulate) sorts the ids and adds each
-        # run of equal ids serially, and the budget's unused tail is one
-        # run of the pad id N, about 1.2M long a view at 800x800 on a
-        # 131,072-slot store at stream_factor 12: a training step took
-        # 2.8 s on an H100 that way, 0.14 s this way
-        streams.append(payload[k].index_select(0, stream_ids.long()))
+        ids.append(binning.compact_stream_ids(s_gauss, starts, starts_c, s_budget, n))
         segs.append(seg_c)
         starts_cs.append(starts_c)
         dropped = dropped + seg_len.sum() - seg_c.sum()
         clipped = clipped + clip_k
+    # the one row gather: payload rows in compacted stream order, every
+    # view's by its own ids (transpose: kernel G1).  Each view's unused
+    # budget tail is one run of the pad id N, which G1 does not walk.
     images, alphas = _composite(
-        torch.stack(streams), torch.stack(segs), torch.stack(starts_cs),
-        width, height, cfg, background,
+        stream_gather.gather_stream(payload, torch.stack(ids)), torch.stack(segs),
+        torch.stack(starts_cs), width, height, cfg, background,
     )
     aux = RasterizeAux(radii=projs.radii, depths=projs.depths,
                        num_dropped=dropped, num_clipped=clipped)
@@ -209,9 +205,8 @@ def _rasterize_packed_shared(projs, payload, width, height, cfg: RasterizeConfig
     )
     seg_c, starts_c = binning.waterfill_segments(seg_len, s_budget)
     stream_ids = binning.compact_stream_ids(s_gauss, starts, starts_c, s_budget, n)
-    index = stream_ids.long()[None, :, None].expand(v, -1, binning.PAYLOAD_DIM)
     images, alphas = _composite(
-        torch.gather(payload, 1, index), seg_c.expand(v, -1),
+        stream_gather.gather_stream(payload, stream_ids), seg_c.expand(v, -1),
         starts_c.expand(v, -1), width, height, cfg, background,
     )
     aux = RasterizeAux(radii=projs.radii, depths=projs.depths,

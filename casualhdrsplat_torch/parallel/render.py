@@ -9,8 +9,9 @@ every rank (d, g), in one SPMD program:
    validity columns) along `gauss`, into the one-device order;
 3. the `gauss` axis then splits the tiles: the packed branch bins each
    view once (views round-robin over `gauss`, the starts and ids
-   all-gathered) and composites the rank's tile slice of every view with
-   kernel B1 (backward B2); the dense branch (`packed=False`) bins every
+   all-gathered), gathers every view's stream (ops/stream_gather.py,
+   backward kernel G1) and composites the rank's tile slice of every view
+   with kernel B1 (backward B2); the dense branch (`packed=False`) bins every
    view and composites the rank's tiles of the id tables with kernel B3
    (backward B4), reading the payload rows through the ids;
 4. all-gather every rank's tiles into the full images.
@@ -34,7 +35,7 @@ from casualhdrsplat_torch.geometry import lie
 from casualhdrsplat_torch.models import crf as crf_mod
 from casualhdrsplat_torch.models import gaussians as gauss_mod
 from casualhdrsplat_torch.models import image_formation as imf
-from casualhdrsplat_torch.ops import binning, rasterize_packed
+from casualhdrsplat_torch.ops import binning, rasterize_packed, stream_gather
 from casualhdrsplat_torch.ops import rasterize as rast
 from casualhdrsplat_torch.ops.composite import composite_tile_lists
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
@@ -90,16 +91,13 @@ def _packed_local_tiles(payload, aux, mesh: Mesh, cfg: RasterizeConfig, width, h
     ids_all = collectives.all_gather(ids_b, mesh, GAUSS_AXIS, "bin_ids")
 
     lo_t, hi_t = g * tpd, min((g + 1) * tpd, num_tiles)  # this rank's real tiles
-    pad_row = torch.zeros((1, binning.PAYLOAD_DIM), dtype=payload.dtype, device=dev)
-    streams, starts = [], []
-    for v in range(v_local):
-        starts_v = starts_all[v % n_gauss][v // n_gauss]
-        ids_v = ids_all[v % n_gauss][v // n_gauss]
-        # the one row gather (index_select: its transpose is index_add_)
-        # B2 and its plain version write zeros to the rows of other ranks'
-        # tiles, so the reference's clip_cotangent_rows has nothing to do here
-        streams.append(torch.cat([payload[v], pad_row]).index_select(0, ids_v.long()))
-        starts.append(starts_v)
+    pad_row = torch.zeros((v_local, 1, binning.PAYLOAD_DIM), dtype=payload.dtype, device=dev)
+    starts = [starts_all[v % n_gauss][v // n_gauss] for v in range(v_local)]
+    ids = torch.stack([ids_all[v % n_gauss][v // n_gauss] for v in range(v_local)])
+    # the one row gather, every view by its own ids (transpose: kernel G1).
+    # B2 and its plain version write zeros to the rows of other ranks'
+    # tiles, so the reference's clip_cotangent_rows has nothing to do here
+    streams = stream_gather.gather_stream(torch.cat([payload, pad_row], dim=1), ids)
     # row v T + t owns [v S + starts[v, t], v S + starts[v, t + 1]) where
     # t is one of this rank's tiles, and nothing elsewhere
     starts = torch.stack(starts) + (torch.arange(v_local, device=dev) * s_budget)[:, None]
@@ -108,7 +106,8 @@ def _packed_local_tiles(payload, aux, mesh: Mesh, cfg: RasterizeConfig, width, h
     lo = torch.where(mine, starts[:, :-1], 0).to(_I32).reshape(-1)
     hi = torch.where(mine, starts[:, 1:], 0).to(_I32).reshape(-1)
     statics = rast._statics(v_local, width, height, cfg)
-    out = rasterize_packed.composite_stream(torch.cat(streams), lo, hi, statics)
+    out = rasterize_packed.composite_stream(streams.reshape(-1, binning.PAYLOAD_DIM), lo, hi,
+                                            statics)
     p = cfg.tile_h * cfg.tile_w
     out4 = out[:-1].reshape(v_local, num_tiles, 4, p)[:, lo_t:hi_t]
     if hi_t - lo_t < tpd:  # the padded tiles past the image: empty

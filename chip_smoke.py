@@ -5,8 +5,9 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
-   started together, sm_90a: B1-B4 and both halves of kernel T1, the CRF
-   MLP of ops/crf_fused.py) and prints ptxas's register and spill lines;
+   started together, sm_90a: B1-B4, both halves of kernel T1, the CRF
+   MLP of ops/crf_fused.py, and G1, the packed stream gather's transpose
+   of ops/stream_gather.py) and prints ptxas's register and spill lines;
    then T1's instruction mix per element from its SASS (cuobjdump) and the
    least time its MUFU pipes and issue slots need for a frame, and T1 at
    64 units against its plain versions.
@@ -37,8 +38,10 @@
    every scalar and every tensor of the step held together (the
    card-vs-CPU step tolerance).  Checks that every scalar is finite,
    that every parameter group moved, that the density-control statistics
-   rose and that the packed forward and backward kernels were each launched
-   once per step (counts zeroed just before the steps).
+   rose and that the packed forward and backward kernels and G1 were each
+   launched once per step, a replay included (counts zeroed just before
+   the steps).  Then two eager steps from one state: the largest
+   difference of every gradient group and tensor of the step is logged.
 6. Dense training on the same video: a Trainer on PRESETS["ladder4"] with
    the dense RasterizeConfig and density control on, its store built from
    98,304 of the cloud's points so that a round finds free slots; 3 warm-up
@@ -61,8 +64,9 @@
    card, a step, and on the packed trainer a densify round and a rebalance
    (counts kept, spread not wider); the ranks report their launches and
    each collective's bytes and host time per step; (c) `bench --sharded
-   1,1` (its JSON line, B1 and B2 once a step) and dryrun_multichip(2)
-   on two gloo ranks.
+   1,1` (its JSON line, B1, B2 and G1 once a step) and
+   dryrun_multichip(2) on two gloo ranks.  B1, B2 and G1 once a step on
+   the packed branch; rank 1 holds B1-B4 and G1 to their plain versions.
 8. The command line on the same video written as a COLMAP capture (text
    model, 8-bit PNG frames), in this process: `train --preset ladder4` for
    6 steps with checkpoints at 3 and 6 and an eval at 6; steps 4-6 again
@@ -71,18 +75,22 @@
    modes; `export`, read back equal to the checkpoint.  Then the viewer
    (10 /render.jpg requests) and both pose aligners (48 steps each, a
    known offset injected) on the trained scene.  B1 and B2 launch counts
-   are checked for every command, and the two kernels are held against
-   their plain versions on one aligner step's inputs (render_pose's
-   backward, the per-view branch).
+   are checked for every command (G1 once per B2), and B1, B2 and G1 are
+   held against their plain versions on one aligner step's inputs
+   (render_pose's backward, the per-view branch).
 9. Holds every kernel against its plain PyTorch version on the inputs the
    paths gave it (pixels at a threshold tie exempt, forward and backward;
    each backward run twice: equal bits, but for the dense list form, whose
    atomics add in an order that changes from run to run: its largest
-   run-to-run difference is logged), and the
+   run-to-run difference is logged); G1 also against the PyTorch emulation
+   of its schedule, to the bit, on the packed training step, bench's step,
+   an aligner step (per-view ids) and rank 1's sharded step; and the
    slices on the card against the same on the CPU at a small size (the
    rendered frame; the gradients of one packed training step; a dense
    training step, a densify round and the step after it).
-10. Times each kernel with CUDA events at the paths' shapes, the packed ones
+10. Times each kernel with CUDA events at the paths' shapes (G1 also beside
+   the library call the port ran before, gather's scatter_add_ or
+   index_add_, and its inverse index alone), the packed ones
    also at the same frame on 16x16 tiles and at bench.py::build's shapes
    (16x16 tiles, 4 views, 100k Gaussians), beside its plain version and its
    bound; T1 against its plain versions (forward atol T1_ATOL, backward at
@@ -103,10 +111,10 @@
    report holds the reference's keys, every curve point is finite, the
    last eval of each rung beats its first in eval_psnr, and B1 and B2 were
    launched once per step; then both held against their plain versions on
-   the last step's inputs.
+   the last step's inputs.  G1 once per step as well.
 12. bench (casualhdrsplat_torch.bench.main at build()'s defaults: 100k
    Gaussians, 800x800, 4 views, 16x16 tiles, chunk 128): its JSON line,
-   B1 and B2 once per step.
+   B1, B2 and G1 once per step.
 13. entry (casualhdrsplat_torch.entry.entry()): the blurred frame's shape
    and range, B1 launched once.
 14. With --profile, prints the largest kernels of every profiled window
@@ -182,9 +190,10 @@ BWD_TOUCHED_OPS = 47
 # taken per thread, per warp and over warps in the kernel and in one sum in
 # the plain version, and tot - r cancels toward the end of a segment; the
 # skip vote's one-window slack (above) moves a slot by at most eps times
-# its weight.  The scatter-add of the gather's transpose runs as float
-# atomics on the card, in an order that changes from run to run: the
-# card-vs-CPU gradient check uses the same tolerance.  The gradient jumps at
+# its weight.  The card-vs-CPU gradient check uses the same tolerance:
+# kernels and library calls sum in other orders than the CPU (G1, the
+# gather's transpose, adds a row's slots in slot order as index_add_ does
+# on a CPU, but B2 and the plain layers do not).  The gradient jumps at
 # a threshold tie as the function does: the side a version takes there
 # switches that pixel's term of a slot's sums on or off.  A pixel's terms
 # are linear in its upstream gradient, so the kernel comparison leaves the
@@ -757,6 +766,126 @@ def measure_dense_backward(label, call, reps):
         **_list_meta(rows, ids, counts, statics))
 
 
+def capture_backwards(fn):
+    """Run fn(), a packed path's forward and backward, and return the
+    arguments of its calls of B2's launcher and of G1's
+    (stream_gather._backward_cuda: d stream, ids, rows); their launches
+    are not counted."""
+    from casualhdrsplat_torch.ops import rasterize_packed as rp
+    from casualhdrsplat_torch.ops import stream_gather as sg
+
+    g1 = []
+    b2 = capture_calls(rp, "_backward_cuda",
+                       lambda: g1.extend(capture_calls(sg, "_backward_cuda", fn)))
+    return b2, g1
+
+
+def measure_g1(label, call, reps):
+    """Kernel G1 (ops/stream_gather.py) on one captured call of the card's
+    backward (d stream [V, S, 16], ids [S] shared or [V, S] per view, rows
+    R): equal to the PyTorch emulation of its schedule to the bit, two
+    launches equal to the bit, and within the backward tolerance of its
+    plain version (index_add_, float atomics on the card).  Times with CUDA
+    events: the backward as the path runs it (`ms`: the inverse index and
+    the kernel), each alone, the plain version, and the library call the
+    port ran before (gather's backward, scatter_add_ with the index
+    expanded over the views, for shared ids; index_add_ per view).  The
+    bound: the function reads every id once and the gradient row of each
+    slot that names a real row (not the pad id) once a view, and writes the
+    [V, R, 16] gradient once; one add per element read."""
+    import torch
+
+    from casualhdrsplat_torch.ops import stream_gather as sg
+
+    grad, ids, rows = call
+    v, s = grad.shape[:2]
+    shared = ids.dim() == 1
+    with uncounted(), torch.no_grad():
+        got = sg._backward_cuda(grad, ids, rows)
+        again = sg._backward_cuda(grad, ids, rows)
+        emulated = sg.stream_gather_backward_emulation(grad, ids, rows)
+        plain = sg.stream_gather_backward_reference(grad, ids, rows)
+        torch.cuda.synchronize()
+        equal, deterministic = torch.equal(got, emulated), torch.equal(got, again)
+        largest = float(plain.abs().max())
+        err, outliers = grad_outliers(got, plain, largest)
+        del again, emulated, plain
+        offsets, slots = sg.inverse_index(ids, rows)
+        if shared:
+            index = ids.long()[None, :, None].expand(v, -1, grad.shape[2])
+
+            def library():
+                return torch.zeros_like(got).scatter_add_(1, index, grad)
+        else:
+            keys = sg._keys(ids, rows).long()
+            flat = grad.reshape(v * s, grad.shape[2])
+
+            def library():
+                return torch.zeros((v * rows, grad.shape[2]), device=grad.device).index_add_(
+                    0, keys, flat)
+        ms = event_ms(lambda: sg._backward_cuda(grad, ids, rows), reps)
+        kernel_ms = event_ms(lambda: sg._launch(grad, offsets, slots, rows, shared), reps)
+        inverse_ms = event_ms(lambda: sg.inverse_index(ids, rows), reps)
+        plain_ms = event_ms(lambda: sg.stream_gather_backward_reference(grad, ids, rows), reps)
+        library_ms = event_ms(library, reps)
+        live = int((ids < rows - 1).sum())
+    reads = live * (v if shared else 1)
+    nbytes = reads * grad.shape[2] * 4 + ids.numel() * 4 + got.numel() * 4
+    bound_ms, bound_by = roofline(nbytes, reads * grad.shape[2])
+    res = dict(
+        label=label, views=v, slots_per_view=s, rows=rows,
+        ids="shared" if shared else "per view", slots_naming_a_row=live, bound_bytes=nbytes,
+        max_abs_err=err, largest_gradient=largest, outliers=outliers,
+        equal_to_emulation=equal, deterministic=deterministic,
+        ms=ms, kernel_ms=kernel_ms, inverse_ms=inverse_ms, plain_ms=plain_ms,
+        library_ms=library_ms,
+        library="scatter_add_" if shared else "index_add_",
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+    log(f"G1[{label}]: " + json.dumps(res))
+    if not (equal and deterministic and outliers == 0):
+        raise AssertionError(
+            f"G1[{label}]: equal to its emulation {equal}, two launches equal "
+            f"{deterministic}, {outliers} elements outside the backward tolerance of the plain "
+            f"version (max abs err {err} against a largest value of {largest})")
+    return res
+
+
+def run_to_run(trainer, label):
+    """Two eager steps from one state: the largest difference of every
+    tensor of the step between them, by kind and group (a group's gradient
+    read off its first moment, as `compare_step_tensors` reads it), logged
+    and not held.  What is not zero there is what a packed step does not
+    reproduce on the card.  Launches not counted; the trainer goes on from
+    the first step's state."""
+    import torch
+
+    start = trainer_state(trainer)
+    ends = []
+    with uncounted():
+        for _ in range(2):
+            set_trainer_state(trainer, start)
+            trainer.run_step_eager()
+            ends.append(trainer_state(trainer))
+    set_trainer_state(trainer, ends[0])
+    diffs = {}
+    for (kind, name), a, b in zip(step_tensor_kinds(trainer), ends[0]["tensors"],
+                                  ends[1]["tensors"]):
+        if kind == "read" or a.numel() == 0:
+            continue
+        d = float((a.double() - b.double()).abs().max())
+        if kind == "mu":
+            d /= 1.0 - trainer.opt.groups[name].b1
+            kind = "gradient"
+        key = f"{kind} {name}"
+        diffs[key] = max(diffs.get(key, 0.0), d)
+    moved = sorted(k for k, d in diffs.items() if d > 0)
+    log(f"{label}, run to run: two eager steps from one state, the largest difference of "
+        f"every gradient group and tensor of the step: {json.dumps(diffs)}; "
+        + (f"not equal to the bit: {moved}" if moved else "every one equal to the bit"))
+    return diffs
+
+
 def profile_window(name, fn, reps=3):
     """Device time by kernel over `reps` calls of fn() (torch.profiler),
     against the host-clock wall time of the same window: returns (wall ms,
@@ -885,10 +1014,9 @@ def row_bounds_check(device):
 
 
 def small_train_step_check(device):
-    """One training step's gradients on the card (kernels B1 and B2, the
-    scatter-add of the gather's transpose as atomics) against the same on
-    the CPU (the plain versions), at 64x64, for every parameter group and
-    the means2d tap."""
+    """One training step's gradients on the card (kernels B1, B2 and G1,
+    the gather's transpose) against the same on the CPU (the plain
+    versions), at 64x64, for every parameter group and the means2d tap."""
     import torch
 
     from casualhdrsplat_torch import config
@@ -1007,8 +1135,8 @@ def round_threshold(trainer):
     see (predicted by an eager loss_and_grads from the same state), between
     the 70th and 97th percentile of the alive slots'.  The graphed and the
     eager step then grant the same slots: their statistics differ only by
-    the float atomics of the backward, far below that gap.  Returns the
-    threshold, or None."""
+    what the run-to-run log shows (on the dense path B4's float atomics),
+    far below that gap.  Returns the threshold, or None."""
     import torch
 
     from casualhdrsplat_torch.train import densify as densify_mod
@@ -1052,7 +1180,8 @@ def compare_step_tensors(trainer, label, start, graphed, eager):
     held to within two of the group's learning rates (times the pose
     group's translation scale) plus two roundings: Adam divides each
     element's first moment by its own root mean square, so where a
-    gradient sits within the float atomics' noise its step can take either
+    gradient sits within the run-to-run noise (B4's float atomics on the
+    dense path, and whatever `run_to_run` logs) its step can take either
     sign, and a step moves an element by about lr.  The statistics' sum of
     screen gradients at the step tolerance, their counts and radii and
     every tensor a step only reads to the bit.  Returns the worst gradient
@@ -1095,11 +1224,10 @@ def graph_vs_eager_steps(trainer, steps, kernels, label, after_step=None):
     graphed `run_step` and the eager `run_step_eager`; the run goes on from
     the graphed one.  Each step must give the eager step's scalars (the
     counts equal, loss and PSNR within the card-vs-CPU step tolerance) and
-    its tensors as `compare_step_tensors` holds them: the float atomics of
-    the packed stream gather's transpose and of B4 add in an order that
-    changes from run to run, and nothing else differs.  Each of `kernels`
-    must launch once a
-    step on either path.  A round's threshold is put where both grant the
+    its tensors as `compare_step_tensors` holds them: B4's float atomics
+    add in an order that changes from run to run, and the run-to-run log
+    of the packed step (`run_to_run`) shows what else does.  Each of
+    `kernels` must launch once a step on either path.  A round's threshold is put where both grant the
     same slots (`round_threshold`).  Returns {"graphed": walls, "eager":
     walls} in seconds, and "replay": whether each graphed step replayed
     (the warm-up and the capture did not)."""
@@ -1192,10 +1320,12 @@ def run_timed_steps(trainer, steps, kernels, label, after_step=None):
 
 def train_phase(device, dataset, rp):
     """The packed training path at the full width of ladder4-full: returns
-    (launches of B1, launches of B2, the B2 measurement at its shape)."""
+    (launches of B1, of B2 and of G1, the B2 measurement at its shape, T1's
+    measurements, G1's)."""
     import torch
 
     from casualhdrsplat_torch import config
+    from casualhdrsplat_torch.ops import stream_gather as sg
 
     cfg = config.PRESETS["ladder4"]()
     # Density control off: without its SH warm-up the run has all 16
@@ -1218,21 +1348,25 @@ def train_phase(device, dataset, rp):
     _, t_warm = timed(trainer.run_step)
     log(f"warm-up step (the graph's, eager): {t_warm:.3f} s")
     count_before = int(trainer.adc.count.sum())
-    run_timed_steps(trainer, TRAIN_STEPS, (rp.FWD_KERNEL, rp.BWD_KERNEL), "packed training")
+    run_timed_steps(trainer, TRAIN_STEPS, (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL),
+                    "packed training")
     if int(trainer.adc.count.sum()) <= count_before:
         raise AssertionError("the density-control visibility counts did not rise")
+    run_to_run(trainer, "packed training")
     eager_and_graphed("packed training step", trainer.run_step_eager, trainer.run_step)
-    fwd_launches, bwd_launches = rp.FWD_KERNEL.launches, rp.BWD_KERNEL.launches
+    launches = rp.FWD_KERNEL.launches, rp.BWD_KERNEL.launches, sg.KERNEL.launches
 
-    # kernel B2 and T1 on the inputs a training step gives them
+    # kernels B2, G1 and T1 on the inputs a training step gives them
     frame = int(trainer.dataset.train_indices[1])
-    bwd_call, = capture_calls(rp, "_backward_cuda", lambda: trainer.loss_and_grads(frame))
+    (bwd_call,), (g1_call,) = capture_backwards(lambda: trainer.loss_and_grads(frame))
     res = measure_backward("train_step", bwd_call, reps=10)
     with torch.no_grad():
         measure_compositor("train_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=10)
     del bwd_call
+    g1 = measure_g1("train_step", g1_call, reps=10)
+    del g1_call
     t1 = measure_crf_step("train_step", lambda: trainer.loss_and_grads(frame))
-    return fwd_launches, bwd_launches, res, t1
+    return (*launches, res, t1, g1)
 
 
 def graphed_serving(params, scene, cfg, pose_vms, angles, exposure, eager_out):
@@ -1592,27 +1726,31 @@ class CallTimer:
 def cli_phase(device, dataset, rp):
     """The command line at full width on a COLMAP capture of the training
     video, then the viewer and both pose aligners on the trained scene:
-    returns (launches of B1, launches of B2, the B2 measurement on an
+    returns (launches of B1, of B2 and of G1, the B2 measurement on an
     aligner step)."""
     from casualhdrsplat_torch import cli
     from casualhdrsplat_torch import config
     from casualhdrsplat_torch.data import dataset as dataset_mod
     from casualhdrsplat_torch.models import image_formation as imf
+    from casualhdrsplat_torch.ops import stream_gather as sg
     from casualhdrsplat_torch.train import checkpoint as ckpt
     from casualhdrsplat_torch.train import trainer as trainer_mod
 
-    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL)
-    total = np.zeros(2, np.int64)
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
+    total = np.zeros(3, np.int64)
 
     def count(fn):
         """(fn(), the launches of B1 and B2 during it), which also add to
-        the phase's total."""
+        the phase's total with G1's; every packed backward launches G1
+        once, so G1 must count what B2 counts."""
         for k in kernels:
             k.launches = 0
         out = fn()
         n = tuple(k.launches for k in kernels)
         total[:] += n
-        return out, n
+        if n[2] != n[1]:
+            raise AssertionError(f"G1 once per packed backward: B2 {n[1]}, G1 {n[2]}")
+        return out, n[:2]
 
     with tempfile.TemporaryDirectory() as tmp:
         capture = os.path.join(tmp, "capture")
@@ -1709,14 +1847,15 @@ def cli_phase(device, dataset, rp):
 
     viewer_phase(trainer, count)
     res = aligner_phase(trainer, count, rp)
-    log(f"command-line phase launches: B1 {total[0]}, B2 {total[1]}")
-    return int(total[0]), int(total[1]), res
+    log(f"command-line phase launches: B1 {total[0]}, B2 {total[1]}, G1 {total[2]}")
+    return int(total[0]), int(total[1]), int(total[2]), res
 
 
 # Resume on the card: the continuation from step_3 and the uninterrupted
-# run differ only by the float atomics of the packed path's stream-gather
-# transpose (autograd's index_add), which add a Gaussian's gradient in an
-# order that changes from run to run.  Adam's first steps are about lr x
+# run differ only by what is not deterministic in a packed step: the
+# run-to-run log of the training phase (`run_to_run`) shows it, group by
+# group (G1, the stream gather's transpose, no longer adds with float
+# atomics).  Adam's first steps are about lr x
 # sign(gradient): where a gradient cancels to below that rounding an
 # element steps the other way, and the runs part by up to 2 lr a step from
 # there on.  Held to: the step-6 loss and PSNR within RESUME_RTOL; in every
@@ -1823,8 +1962,8 @@ def aligner_phase(trainer, count, rp):
     """make_aligner on frame 1's deblurred view with a known 0.5 degree /
     1 cm offset, make_window_realigner on frame 1 and on the last frame
     (whose window repeats the last knot) against their clean renders with
-    that offset put into the window's knots, 48 steps each; then B1 and B2
-    against their plain versions on one aligner step's inputs (the
+    that offset put into the window's knots, 48 steps each; then B1, B2
+    and G1 against their plain versions on one aligner step's inputs (the
     per-view packed branch's backward).  Returns the B2 measurement."""
     import torch
 
@@ -1861,12 +2000,13 @@ def aligner_phase(trainer, count, rp):
             lambda: count(lambda: realign(broken, scene, frame, clean)))
         log_alignment(f"make_window_realigner, frame {frame} (knots {idx.tolist()})", curve, t,
                       b1, b2, ALIGN_STEPS)
-    # kernels B1 and B2 on the inputs one aligner step gives them
-    bwd_call, = capture_calls(rp, "_backward_cuda", lambda: pose_align.make_aligner(
+    # kernels B1, B2 and G1 on the inputs one aligner step gives them
+    (bwd_call,), (g1_call,) = capture_backwards(lambda: pose_align.make_aligner(
         m, steps=1)(p, scene, vm_off, dt, target))
     res = measure_backward("aligner_step", bwd_call, reps=20)
     with torch.no_grad():
         measure_compositor("aligner_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=20)
+    measure_g1("aligner_step", g1_call, reps=20)
     return res
 
 
@@ -1883,15 +2023,14 @@ def log_alignment(name, curve, seconds, b1, b2, b1_expected):
 
 
 def bench_shapes(device):
-    """Both kernels at bench.py::build's workload: 100k Gaussians, 4 views,
-    16x16 tiles, chunk 128."""
+    """B1, B2 and G1 at bench.py::build's workload: 100k Gaussians, 4 views,
+    16x16 tiles, chunk 128.  Returns G1's measurement."""
     import torch
 
     from casualhdrsplat_torch.config import RasterizeConfig
     from casualhdrsplat_torch.data import synthetic
     from casualhdrsplat_torch.geometry import spline
     from casualhdrsplat_torch.ops import rasterize as rast
-    from casualhdrsplat_torch.ops import rasterize_packed as rp
 
     rng = np.random.default_rng(SEED)
     cloud = synthetic.random_cloud(rng, 100_000, scale_range=(0.004, 0.02), device=device)
@@ -1912,26 +2051,29 @@ def bench_shapes(device):
             cam.fx, cam.fy, cam.cx, cam.cy, SIZE, SIZE, bench_cfg)
         (images * weights).sum().backward()
 
-    bwd_call, = capture_calls(rp, "_backward_cuda", fwd_bwd)
+    (bwd_call,), (g1_call,) = capture_backwards(fwd_bwd)
     with torch.no_grad():
         measure_compositor("bench_16x16", bwd_call[:3] + bwd_call[6:], 1, reps=20)
     measure_backward("bench_16x16", bwd_call, reps=20)
+    del bwd_call
+    return measure_g1("bench_16x16", g1_call, reps=20)
 
 
 def quality_phase(device, rp):
     """The at-spec quality run, cut to QUALITY_STEPS steps: returns
-    (launches of B1, launches of B2) during the run."""
+    (launches of B1, of B2 and of G1) during the run."""
     import torch
 
     from casualhdrsplat_torch import quality_run
+    from casualhdrsplat_torch.ops import stream_gather as sg
     from casualhdrsplat_torch.train import trainer as trainer_mod
 
-    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL)
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
     per_step, captured, step_s = [], [], []
     run_step = trainer_mod.Trainer.run_step
 
     def counted_step(trainer):
-        """run_step, noting the B1 and B2 launches it made; after the last
+        """run_step, noting the B1, B2 and G1 launches it made; after the last
         step, B2's call on that state (frame 1's loss and gradients) is kept
         for the comparison with the plain versions: a replayed step makes
         no call of the launcher to capture."""
@@ -1970,7 +2112,8 @@ def quality_phase(device, rp):
         f"s); step median {np.median(coarse) * 1e3:.2f} ms on the coarse rung, "
         f"{np.median(full) * 1e3:.2f} ms at full resolution (the first step of each left "
         f"out); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"B1 {launches[0]}, B2 {launches[1]}; rasterizer {json.dumps(report['rasterize'])}")
+        f"B1 {launches[0]}, B2 {launches[1]}, G1 {launches[2]}; rasterizer "
+        f"{json.dumps(report['rasterize'])}")
     log("quality report: " + json.dumps({k: report[k] for k in (
         "scale", "exposure_recovery", "crf_recovery", "hdr_recovery", "pose_recovery",
         "final_eval", "deblurring_gain_db", "deblurring_gain_db_aligned")}))
@@ -1988,8 +2131,8 @@ def quality_phase(device, rp):
         rung = [p["eval_psnr"] for p in curve if p["res"] == res]
         if len(rung) < 2 or not rung[-1] > rung[0]:
             raise AssertionError(f"quality run: eval_psnr at {res}x{res} did not rise: {rung}")
-    if len(per_step) != QUALITY_STEPS or set(per_step) != {(1, 1)}:
-        raise AssertionError(f"quality run: B1 and B2 once per step, got {set(per_step)}")
+    if len(per_step) != QUALITY_STEPS or set(per_step) != {(1, 1, 1)}:
+        raise AssertionError(f"quality run: B1, B2 and G1 once per step, got {set(per_step)}")
 
     # kernels B1 and B2 on the last step's inputs: 800x800, 8 views of
     # 16x16 tiles, chunk 256, per-view binning into 12 x 131,072-row streams
@@ -1997,7 +2140,7 @@ def quality_phase(device, rp):
     res = measure_backward("quality_step", bwd_call, reps=10)
     with torch.no_grad():
         measure_compositor("quality_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=10)
-    return launches[0], launches[1], res
+    return (*launches, res)
 
 
 def bench_phase(device, rp):
@@ -2005,13 +2148,14 @@ def bench_phase(device, rp):
     a CUDA graph), and B1 and B2 once per step (the warm-up steps and 3
     windows); then, in this call, the same windows of the eager step (the
     yardstick) and both steps' walls and busy shares.  Returns (launches of
-    B1, launches of B2) of bench.main."""
+    B1, of B2 and of G1) of bench.main."""
     import contextlib
     import io
 
     from casualhdrsplat_torch import bench
+    from casualhdrsplat_torch.ops import stream_gather as sg
 
-    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL)
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
     for k in kernels:
         k.launches = 0
     text = io.StringIO()
@@ -2024,11 +2168,11 @@ def bench_phase(device, rp):
     steps = bench.WARMUP_STEPS + bench.N_WINDOWS * bench.ITERS_PER_WINDOW
     result = json.loads(lines[-1])
     log(f"bench: {steps} steps in {seconds:.1f} s with the build; launches B1 {launches[0]}, "
-        f"B2 {launches[1]}")
+        f"B2 {launches[1]}, G1 {launches[2]}")
     if rc != 0 or result["metric"] != "rendered Mpix/s/chip fwd+bwd" or not result["value"] > 0:
         raise AssertionError(f"bench: exit {rc}, line {result}")
-    if launches != (steps, steps):
-        raise AssertionError("bench: B1 and B2 once per step")
+    if launches != (steps, steps, steps):
+        raise AssertionError("bench: B1, B2 and G1 once per step")
     step, args, pixels = bench.build(device=device)
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
@@ -2114,9 +2258,11 @@ def sharded_world_of_one(device, dataset, rp):
     """The sharded path on a world of one (nccl, mesh (1, 1)) against the
     one-device trainer on the per-view branch from the same state: one
     step's gradients, then a warm-up and TRAIN_STEPS steps on each.
-    Returns (B1, B2 launches of the sharded steps)."""
+    Returns (B1, B2, G1 launches of the sharded steps)."""
     import torch
     import torch.distributed as dist
+
+    from casualhdrsplat_torch.ops import stream_gather as sg
 
     from casualhdrsplat_torch.parallel.distributed import backend_for
     from casualhdrsplat_torch.parallel.mesh import Mesh
@@ -2148,18 +2294,19 @@ def sharded_world_of_one(device, dataset, rp):
             walls = {"one-device": [], "mesh (1, 1)": []}
             outs = {k: [] for k in walls}
             mesh.stats.clear()
-            launches = (0, 0)
+            kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
+            launches = (0, 0, 0)
             # the two trainers' steps alternate, so that a drift of the
             # host's or the card's speed reaches both alike
             for _ in range(TRAIN_STEPS):
                 for name, t in (("one-device", one), ("mesh (1, 1)", sharded)):
-                    before = rp.FWD_KERNEL.launches, rp.BWD_KERNEL.launches
+                    before = [k.launches for k in kernels]
                     out, dt = timed(t.run_step_eager)
                     walls[name].append(dt)
                     outs[name].append(out)
                     if t is sharded:
-                        launches = (launches[0] + rp.FWD_KERNEL.launches - before[0],
-                                    launches[1] + rp.BWD_KERNEL.launches - before[1])
+                        launches = tuple(n + k.launches - b
+                                         for n, k, b in zip(launches, kernels, before))
             for step, (x, y) in enumerate(zip(outs["one-device"], outs["mesh (1, 1)"]), 2):
                 if not (np.isfinite(y["loss"]) and abs(x["loss"] - y["loss"])
                         <= 1e-4 * abs(x["loss"]) and abs(x["psnr"] - y["psnr"]) <= 1e-3):
@@ -2168,13 +2315,14 @@ def sharded_world_of_one(device, dataset, rp):
             log(f"sharded steps, mesh (1, 1): median {mesh_ms:.2f} ms against the one-device "
                 f"per-view step's {one_ms:.2f} ms ({mesh_ms / one_ms:.3f}x); losses "
                 + ", ".join(f"{o['loss']:.6f}" for o in outs["mesh (1, 1)"])
-                + f"; launches over {TRAIN_STEPS} steps: B1 {launches[0]}, B2 {launches[1]}; "
+                + f"; launches over {TRAIN_STEPS} steps: B1 {launches[0]}, B2 {launches[1]}, "
+                f"G1 {launches[2]}; "
                 f"walls in ms, alternating: " + json.dumps(
                     {k: [round(w * 1e3, 2) for w in v] for k, v in walls.items()}))
             for line in collective_lines(mesh.stats, TRAIN_STEPS):
                 log(line)
-            if launches != (TRAIN_STEPS, TRAIN_STEPS):
-                raise AssertionError("mesh (1, 1): B1 and B2 once per step")
+            if launches != (TRAIN_STEPS,) * 3:
+                raise AssertionError("mesh (1, 1): B1, B2 and G1 once per step")
             if "--profile" in sys.argv[1:]:
                 profile_window("one-device per-view step", one.run_step_eager)
                 profile_window("mesh (1, 1) step", sharded.run_step_eager)
@@ -2192,20 +2340,21 @@ def sharded_rank(rank, device, dataset, cfgs, refs):
     the initial state (rank 0 holds them against the one-device `refs`),
     then a step on each branch, a densify round and a rebalance.  On
     MEASURED_RANK, each mesh's first step of each branch is then held
-    against the plain versions of B1-B4 (`sharded_kernel_checks`).
+    against the plain versions of B1-B4 and G1 (`sharded_kernel_checks`).
     Returns this rank's log lines, its launch counts on the path (the
     comparison's launches left out) and {mesh: {kernel: max abs err}}."""
     import torch
 
     from casualhdrsplat_torch.ops import rasterize_dense as rd
     from casualhdrsplat_torch.ops import rasterize_packed as rp
+    from casualhdrsplat_torch.ops import stream_gather as sg
     from casualhdrsplat_torch.parallel import render as prender
     from casualhdrsplat_torch.parallel import sharding
     from casualhdrsplat_torch.parallel.mesh import Mesh
     from casualhdrsplat_torch.train.trainer import Trainer
 
     kernels = {"B1": rp.FWD_KERNEL, "B2": rp.BWD_KERNEL, "B3": rd.FWD_KERNEL,
-               "B4": rd.BWD_KERNEL}
+               "B4": rd.BWD_KERNEL, "G1": sg.KERNEL}
     # each branch's backward launcher, whose captured call also holds the
     # forward's inputs
     launchers = {"packed": (rp, "_backward_cuda"), "dense": (rd, "backward")}
@@ -2232,14 +2381,23 @@ def sharded_rank(rank, device, dataset, cfgs, refs):
                                      f"{ref['dropped']}")
             del out
             mesh.stats.clear()
-            outs = []
+            outs, g1_calls = [], []
+
+            def step():
+                outs.append(t.loss_and_grads(frame))
+
+            def packed_step():  # G1's call as well
+                g1_calls.extend(capture_calls(sg, "_backward_cuda", step, restore_counts=False))
+
             calls, dt = timed(lambda: capture_calls(
-                *launchers[branch], lambda: outs.append(t.loss_and_grads(frame)),
+                *launchers[branch], packed_step if branch == "packed" else step,
                 restore_counts=False))
             (loss, _, grads, g2d), = outs
             if rank == MEASURED_RANK:
                 captured[branch] = calls[0]
-            del calls
+                if branch == "packed":
+                    captured["G1"] = g1_calls[0]
+            del calls, g1_calls
             stats = dict(mesh.stats)
             got = flat_grads(t, grads, g2d, lambda g: sharding.gather_leaf(g, mesh))
             worst = max(grads_close(f"{tag} gradient {k}", got[k], ref["grads"][k])
@@ -2279,11 +2437,13 @@ def sharded_rank(rank, device, dataset, cfgs, refs):
 
 
 def sharded_kernel_checks(shape, captured):
-    """B1-B4 against their plain versions on the inputs one rank's sharded
-    training step gave them: the packed stream with the rows of the other
-    rank's tiles empty (lo = hi = 0), and the dense branch's slice of
-    tiles with view-carrying indices v tiles_pad + g tpd + i.  Returns
-    {kernel: max abs err}; raises on a disagreement."""
+    """B1-B4 and G1 against their plain versions on the inputs one rank's
+    sharded training step gave them: the packed stream with the rows of the
+    other rank's tiles empty (lo = hi = 0), its per-view ids (G1, also
+    against its emulation), and the dense branch's slice of tiles with
+    view-carrying indices v tiles_pad + g tpd + i.  Returns {kernel: max
+    abs err}, and G1's whole measurement under "G1 measured"; raises on a
+    disagreement."""
     import torch
 
     tag = f"sharded_{shape[0]}x{shape[1]}_rank{MEASURED_RANK}"
@@ -2295,14 +2455,18 @@ def sharded_kernel_checks(shape, captured):
                                 reps=SHARDED_REPS)
         b3 = measure_dense_forward(f"{tag}_dense_step_forward", dense[:3] + dense[5:], 1,
                                    reps=SHARDED_REPS)
-    return {k: r["max_abs_err"] for k, r in (("B1", b1), ("B2", b2), ("B3", b3), ("B4", b4))}
+    g1 = measure_g1(f"{tag}_packed_step", captured["G1"], reps=SHARDED_REPS)
+    errors = {k: r["max_abs_err"] for k, r in (("B1", b1), ("B2", b2), ("B3", b3), ("B4", b4),
+                                                ("G1", g1))}
+    return dict(errors, **{"G1 measured": g1})
 
 
 def sharded_world_of_two(device, dataset):
     """The sharded path on two gloo ranks that share cuda:0, on the meshes
     (1, 2) and (2, 1), against the one-device port on the card.  Their
     times are not those of NCCL across cards.  Returns the launches of B1,
-    B2, B3 and B4 summed over the ranks."""
+    B2, B3, B4 and G1 summed over the ranks, and rank 1's G1 measurement
+    on the mesh (1, 2)."""
     import torch
 
     from casualhdrsplat_torch.models import image_formation as imf
@@ -2337,7 +2501,8 @@ def sharded_world_of_two(device, dataset):
         log(f"  rank {rank} launches: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
         for shape, errs in errors.items():
             log(f"  rank {rank} mesh {shape}: kernels against their plain versions on this "
-                f"rank's step, max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+                f"rank's step, max abs err " + ", ".join(
+                    f"{k} {v:.3g}" for k, v in errs.items() if k != "G1 measured"))
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     checked = results[MEASURED_RANK][2]
@@ -2347,20 +2512,21 @@ def sharded_world_of_two(device, dataset):
         f"{seconds:.1f} s; launches over both ranks {launches}")
     if any(v <= 0 for v in launches.values()):
         raise AssertionError(f"the two-rank world did not launch every kernel: {launches}")
-    return launches
+    return launches, checked[str(SHARDED_MESHES[0])]["G1 measured"]
 
 
 def sharded_bench_and_dryrun(device):
     """bench --sharded 1,1 (a world of one in this process) and
     dryrun_multichip(2) on two gloo ranks sharing the card.  Returns the
-    launches of B1 and B2."""
+    launches of B1 and B2 (of both) and of G1 (of bench's)."""
     import contextlib
     import io
 
     from casualhdrsplat_torch import bench, entry
     from casualhdrsplat_torch.ops import rasterize_packed as rp
+    from casualhdrsplat_torch.ops import stream_gather as sg
 
-    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL)
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
     for k in kernels:
         k.launches = 0
     text = io.StringIO()
@@ -2373,13 +2539,13 @@ def sharded_bench_and_dryrun(device):
     result = json.loads(lines[-1])
     steps = bench.WARMUP_STEPS + bench.N_WINDOWS * bench.ITERS_PER_WINDOW
     log(f"bench --sharded 1,1: {steps} steps in {seconds:.1f} s with the build; launches "
-        f"B1 {launches[0]}, B2 {launches[1]}")
-    if rc != 0 or not result["value"] > 0 or launches != [steps, steps]:
+        f"B1 {launches[0]}, B2 {launches[1]}, G1 {launches[2]}")
+    if rc != 0 or not result["value"] > 0 or launches != [steps] * 3:
         raise AssertionError(f"bench --sharded 1,1: exit {rc}, {result}, launches {launches}")
     results, seconds = timed(lambda: entry.dryrun_multichip(2, device=device.type,
                                                             backend="gloo"))
     for r in results:
-        launches = [a + b for a, b in zip(launches, r["launches"])]
+        launches[:2] = [a + b for a, b in zip(launches, r["launches"])]
     log(f"dryrun_multichip(2), gloo on one card: {seconds:.1f} s; launches per rank "
         f"{[r['launches'] for r in results]}")
     if any(min(r["launches"]) <= 0 for r in results):
@@ -2423,6 +2589,7 @@ def main() -> int:
     from casualhdrsplat_torch.ops import crf_fused
     from casualhdrsplat_torch.ops import rasterize_dense as rd
     from casualhdrsplat_torch.ops import rasterize_packed as rp
+    from casualhdrsplat_torch.ops import stream_gather as sg
 
     device = torch.device("cuda", 0)
     smi = card_line()
@@ -2433,7 +2600,7 @@ def main() -> int:
     # -- build ---------------------------------------------------------------
     # one nvcc per source, all started together
     kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, rd.FWD_KERNEL, rd.BWD_KERNEL,
-               crf_fused.FWD_KERNEL, crf_fused.BWD_KERNEL)
+               crf_fused.FWD_KERNEL, crf_fused.BWD_KERNEL, sg.KERNEL)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         for future in [pool.submit(k.load) for k in kernels]:
@@ -2546,25 +2713,31 @@ def main() -> int:
         device, cfg, scene, params, pose_vms, exposure, rd)
     del params
     dataset = make_training_data(device)
-    train_fwd_launches, train_bwd_launches, res_bwd, t1_step = train_phase(device, dataset, rp)
+    (train_fwd_launches, train_bwd_launches, train_g1_launches, res_bwd, t1_step,
+     g1_step) = train_phase(device, dataset, rp)
     dense_fwd_launches, dense_bwd_launches, res_dense_bwd = dense_train_phase(
         device, dataset, rd)
     torch.cuda.empty_cache()
-    one_fwd, one_bwd = sharded_world_of_one(device, dataset, rp)
-    two = sharded_world_of_two(device, dataset)
+    one = sharded_world_of_one(device, dataset, rp)
+    two, g1_sharded = sharded_world_of_two(device, dataset)
     bench_dry = sharded_bench_and_dryrun(device)
-    sharded = {"B1": one_fwd + two["B1"] + bench_dry[0], "B2": one_bwd + two["B2"] + bench_dry[1],
-               "B3": two["B3"], "B4": two["B4"]}
+    sharded = {"B1": one[0] + two["B1"] + bench_dry[0], "B2": one[1] + two["B2"] + bench_dry[1],
+               "B3": two["B3"], "B4": two["B4"], "G1": one[2] + two["G1"] + bench_dry[2]}
     log(f"sharded phase launches: {sharded}")
-    cli_fwd_launches, cli_bwd_launches, _ = cli_phase(device, dataset, rp)
+    cli_fwd_launches, cli_bwd_launches, cli_g1_launches, _ = cli_phase(device, dataset, rp)
     del dataset
-    quality_fwd_launches, quality_bwd_launches, _ = quality_phase(device, rp)
-    bench_fwd_launches, bench_bwd_launches = bench_phase(device, rp)
+    quality_fwd_launches, quality_bwd_launches, quality_g1_launches, _ = quality_phase(
+        device, rp)
+    bench_fwd_launches, bench_bwd_launches, bench_g1_launches = bench_phase(device, rp)
     entry_fwd_launches = entry_phase(device, rp)
     t1_launches = crf_fused.FWD_KERNEL.launches, crf_fused.BWD_KERNEL.launches
     log(f"T1 launches on the main path: forward {t1_launches[0]}, backward {t1_launches[1]} "
         f"(the sharded phase's second rank not counted)")
-    bench_shapes(device)
+    g1_bench = bench_shapes(device)
+    log("G1 on the main path's inputs (ms: the inverse index and the kernel; library: the "
+        "transpose the port ran before): " + json.dumps({r["label"]: {k: r[k] for k in (
+            "ms", "kernel_ms", "inverse_ms", "library_ms", "plain_ms", "bound_ms")}
+            for r in (g1_step, g1_bench, g1_sharded)}))
     with torch.inference_mode():
         small_slice_check(device)
     small_train_step_check(device)
@@ -2590,6 +2763,13 @@ def main() -> int:
              name="crf_fused", replaces="casualhdrsplat_tpu/models/crf.py:132"),
         dict(kernel_entry("crf_mlp_bwd", "", t1_launches[1], t1_step[1]),
              name="crf_fused_bwd", replaces="casualhdrsplat_tpu/models/crf.py:132"),
+        # G1 stands for XLA's transpose of the packed stream gather (no
+        # pallas_call there), measured on the training step's inputs; the
+        # library call is the scatter_add_ the port ran before
+        dict(kernel_entry("stream_gather_bwd", "rasterize.py:310",
+                          train_g1_launches + cli_g1_launches + quality_g1_launches
+                          + bench_g1_launches + sharded["G1"], g1_step),
+             library_ms=g1_step["library_ms"]),
     ]
     idle = [k["name"] for k in kernels_line if k["launches"] <= 0]
     if idle:

@@ -8,10 +8,11 @@ data-dependent shape: `aten.nonzero`, `aten._unique2`) nor a tensor made
 from Python data (`aten.lift_fresh`, on the card a copy from the host).
 `HostReads`, a TorchDispatchMode, counts those ops while the captured
 functions run on CPU tensors: the packed and dense `Trainer._train_step`,
-`render_pose` in its three modes, the blurred frame of `entry()` and
-bench's step.  Each must count zero.  The plain versions of the
-compositor kernels (B1-B4) are left out of the count: on the card the
-kernels run in their place.
+`render_pose` in its three modes, the blurred frame of `entry()`,
+bench's step, and the packed stream gather with its backward and the
+inverse index that kernel G1 reads on the card.  Each must count zero.
+The plain versions of the compositor kernels (B1-B4) are left out of the
+count: on the card the kernels run in their place.
 
 Also on the CPU: the plain version of kernel B1 (and of B2) treats a row
 whose bounds leave the stream as empty, so the launcher needs no host read
@@ -24,9 +25,10 @@ capture again.
 On the card (marked `cuda`, skipped here): the graphed training step
 against the eager one from the same state on both rasterizer paths,
 across a densify round and an opacity reset (every parameter group within
-1e-4 x its largest + rtol 1e-3, the card-vs-CPU step tolerance: float
-atomics in the packed stream gather's transpose and in B4 add in an order
-that changes from run to run); the graphed `render_pose` equal to the
+1e-4 x its largest + rtol 1e-3, the card-vs-CPU step tolerance: B4's
+float atomics add in an order that changes from run to run, and the
+step's library kernels, cuDNN's among them, need not be deterministic);
+the graphed `render_pose` equal to the
 eager one to the bit; the kernels' launch counts per replay; and a failed
 capture raising with the op named.
 """
@@ -47,6 +49,7 @@ from casualhdrsplat_torch.models import image_formation as imf
 from casualhdrsplat_torch.ops import binning
 from casualhdrsplat_torch.ops import composite
 from casualhdrsplat_torch.ops import rasterize_packed as rp
+from casualhdrsplat_torch.ops import stream_gather
 from casualhdrsplat_torch.ops.composite import CompositeStatics
 from casualhdrsplat_torch.train import optim as t_optim
 from casualhdrsplat_torch.train.trainer import Trainer
@@ -196,6 +199,21 @@ def test_bench_step_makes_no_host_read(host_reads):
         loss, grads = step.eager(*args)
     assert host_reads.found == []
     assert np.isfinite(float(loss)) and grads[0].shape == args[0].shape
+
+
+@pytest.mark.parametrize("per_view", [False, True], ids=["shared", "per_view"])
+def test_stream_gather_makes_no_host_read(host_reads, per_view):
+    """The gather, its backward (the plain version here), and the inverse
+    index that the card's backward builds for kernel G1."""
+    payload = torch.randn(3, 11, 16, requires_grad=True)
+    ids = torch.randint(0, 11, (3, 40) if per_view else (40,), dtype=torch.int32)
+    with host_reads:
+        out = stream_gather.gather_stream(payload, ids)
+        grad, = torch.autograd.grad(out, payload, torch.ones_like(out))
+        offsets, slots = stream_gather.inverse_index(ids, 11)
+    assert host_reads.found == []
+    assert grad.shape == payload.shape and slots.shape == (ids.numel(),)
+    assert offsets.shape == (11 * (3 if per_view else 1) + 1,)
 
 
 def test_plain_b1_and_b2_treat_rows_outside_the_stream_as_empty():

@@ -173,13 +173,14 @@ def test_reference_reports_touched_pairs_and_threshold_ties():
 
 
 def test_per_view_stream_gather_transposes_by_index_add(rng):
-    """The per-view branch gathers its stream rows with index_select, whose
-    transpose is index_add_.  The transpose of advanced indexing (index_put_
-    with accumulate) sorts the ids and adds each run of equal ids serially
-    on a GPU, and the unused tail of a stream budget is one long run of the
-    pad id: a training step at 800x800 over a 131,072-slot store at
-    stream_factor 12 took 2.8 s on the card that way, 0.14 s with
-    index_select (PERF.md, the quality run)."""
+    """The per-view branch gathers its stream rows through
+    ops/stream_gather.py, whose transpose is index_add_ on CPU tensors and
+    kernel G1 on the card, which does not walk the pad row.  The transpose
+    of advanced indexing (index_put_ with accumulate) sorts the ids and adds
+    each run of equal ids serially on a GPU, and the unused tail of a stream
+    budget is one long run of the pad id: a training step at 800x800 over a
+    131,072-slot store at stream_factor 12 took 2.8 s on the card that way,
+    0.14 s with index_select's index_add_ (PERF.md, the quality run)."""
     cloud = synthetic.random_cloud(rng, 90)
     cam = synthetic.orbit_camera(0.1, width=32, img_height=24)
     cfg = t_config.RasterizeConfig(tile_h=8, tile_w=16, chunk=32, shared_binning=False)
@@ -196,6 +197,6 @@ def test_per_view_stream_gather_transposes_by_index_add(rng):
         seen.add(node)
         names.add(type(node).__name__)
         stack += [f for f, _ in node.next_functions]
-    assert "IndexSelectBackward0" in names and "IndexBackward0" not in names, names
+    assert "_GatherStreamBackward" in names and "IndexBackward0" not in names, names
     grad, = torch.autograd.grad(img.sum(), colors)
     assert float(grad.abs().max()) > 0
