@@ -70,7 +70,8 @@ def build(source_name: str) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    # two entry points of one source may be built at once by two threads
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     lib.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
@@ -86,15 +87,19 @@ class CudaKernel:
     """One kernel's C entry point, built and loaded at first use.
 
     `launches` counts launches made through `__call__`; it is a plain
-    integer that a caller may reset.
+    integer that a caller may reset.  With counted=False (a call that is
+    only a part of a kernel's launch, another entry point counting it) it
+    stays 0 and is not registered.
     """
 
-    def __init__(self, source_name: str, symbol: str, argtypes):
+    def __init__(self, source_name: str, symbol: str, argtypes, counted: bool = True):
         self.source_name = source_name
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
-        register_counter(self)
+        self.counted = counted
+        if counted:
+            register_counter(self)
         self.library_path: Path | None = None
         self._fn = None
         self._lock = threading.Lock()
@@ -117,4 +122,5 @@ class CudaKernel:
         err = self.load()(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed with error {err}")
-        self.launches += 1
+        if self.counted:
+            self.launches += 1

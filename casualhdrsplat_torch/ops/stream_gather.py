@@ -23,18 +23,25 @@ the budget's unused tail names.
   d stream[v, s], for r < R - 1, over all 16 columns; the pad row gets
   zeros (its gradient is dropped by `binning.build_payload`'s cat in any
   case).
-  - On CUDA tensors: `inverse_index` (a stable sort of the ids and a
-    searchsorted: each row's slots in increasing slot order; integer work
-    with static shapes and no host read, so a CUDA graph holds it), then
-    kernel G1, which adds each row's slots in that order, one fp32 add at a
-    time, and stores each element once.  A failed build or launch raises.
+  - On CUDA tensors: `slot_index`, the inverse of the ids built by a
+    counting pass (csrc/stream_gather_index.cu: a histogram,
+    torch.cumsum's scan and a placement that is stable by construction;
+    each real row's slots in increasing slot order, the pad row's left
+    out; integer work with static shapes and no host read, so a CUDA
+    graph holds it), then kernel G1, which adds each row's slots in that
+    order, one fp32 add at a time, and stores each element once.  A failed
+    build or launch raises.
   - On CPU tensors: `stream_gather_backward_reference`, the plain version:
     `index_add_`, which adds in index order on a CPU, so it gives the bits
     of the autograd transpose the port used before (scatter_add_ /
     index_add_), the pad row zeroed.
-- `stream_gather_backward_emulation` repeats G1's schedule in PyTorch (the
-  same inverse index, the same order of adds); the tests hold the kernel
-  and the plain version to it, to the bit.
+- `inverse_index` (a stable sort of the ids and a searchsorted) is the
+  index's plain version and yardstick; no path on a card calls it.
+  `slot_index_emulation` repeats the counting pass in PyTorch, with the
+  bucketing order as an argument (the atomics' order changes from run to
+  run); `stream_gather_backward_emulation` repeats G1's schedule on that
+  index.  The tests hold the kernels and the plain version to them, to the
+  bit.
 """
 
 from __future__ import annotations
@@ -49,6 +56,17 @@ from casualhdrsplat_torch.ops.cuda_build import CudaKernel
 KERNEL = CudaKernel(
     "stream_gather_bwd.cu", "chs_stream_gather_bwd",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+)
+# The counting pass that builds G1's index, two calls of its library with a
+# torch.cumsum between them: the histogram (not counted), then bucketing
+# and placement, whose launch `INDEX` counts once per pass.
+INDEX_COUNT = CudaKernel(
+    "stream_gather_index.cu", "chs_stream_gather_index_count",
+    [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3, counted=False,
+)
+INDEX = CudaKernel(
+    "stream_gather_index.cu", "chs_stream_gather_index_place",
+    [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
 )
 
 
@@ -104,6 +122,70 @@ def inverse_index(ids: torch.Tensor, num_rows: int):
     return offsets, perm.to(torch.int32)
 
 
+def slot_index_emulation(ids: torch.Tensor, num_rows: int, order=None):
+    """The counting pass of csrc/stream_gather_index.cu in PyTorch, on any
+    device: (offsets, slots) int32 of the kernel's shapes, each real row's
+    slots in increasing order, the pad rows empty, slots[offsets[-1]:] -1.
+
+    - Histogram of the keys of the slots that name a real row, and its
+      exclusive scan: the offsets.
+    - Bucketing: the slots are placed into their rows in the order `order`
+      (a permutation of the flat slot numbers; by default increasing), as
+      the kernel's atomics place them in an order that changes from run to
+      run.
+    - Placement: the slot at bucketed position p goes to its row's offset
+      plus the number of its row's slots below it, whatever the bucketing
+      order was."""
+    keys = _keys(ids, num_rows).long()
+    flat = ids.reshape(-1)
+    real = (flat >= 0) & (flat < num_rows - 1)  # not the pad id
+    n, dev = keys.numel(), ids.device
+    n_keys = num_rows * (1 if ids.dim() == 1 else ids.shape[0])
+    counts = torch.zeros(n_keys, dtype=torch.int64, device=dev).index_add_(
+        0, keys[real], torch.ones_like(keys[real]))
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    order = torch.arange(n, device=dev) if order is None else order.to(dev).long()
+    placed = order[real[order]]  # the real slots in bucketing order
+    # the bucket: rows in key order, each row's slots in bucketing order
+    bucket = placed[torch.sort(keys[placed], stable=True).indices]
+    row = keys[bucket]
+    lo, hi = offsets[row], offsets[row + 1]
+    rank = torch.zeros_like(bucket)
+    for d in range(int((hi - lo).max()) if bucket.numel() else 0):
+        q = torch.clamp(lo + d, max=max(bucket.numel() - 1, 0))
+        rank += ((lo + d < hi) & (bucket[q] < bucket)).long()
+    slots = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    slots[lo + rank] = bucket
+    return offsets.to(torch.int32), slots.to(torch.int32)
+
+
+def slot_index(ids: torch.Tensor, num_rows: int):
+    """G1's index on the card, (offsets, slots) int32: row r's slots (of
+    view v for per-view ids, key v R + r) in slots[offsets[key]:offsets[key
+    + 1]], in increasing order; the pad rows empty and the tail of slots
+    unwritten, as `slot_index_emulation` gives it.  The counting pass:
+    histogram, torch.cumsum, bucketing and placement.  CUDA tensors only:
+    on the CPU the backward is index_add_, which needs no index."""
+    if ids.device.type != "cuda":
+        raise ValueError(f"the counting index runs on a card, not on {ids.device}")
+    ids = ids.contiguous()
+    views = 1 if ids.dim() == 1 else ids.shape[0]
+    keys = views * num_rows
+    dev, stream = ids.device, _stream(ids)
+    offsets = torch.empty(keys + 1, dtype=torch.int32, device=dev)
+    counts = torch.empty(keys, dtype=torch.int32, device=dev)
+    INDEX_COUNT(ids.data_ptr(), views, ids.shape[-1], num_rows, offsets.data_ptr(),
+                counts.data_ptr(), stream)
+    # offsets[1 + k] = the counts of the keys below k; the last key is a pad
+    # row's, never counted
+    torch.cumsum(counts[:-1], 0, dtype=torch.int32, out=offsets[2:])
+    slots = torch.empty(ids.numel(), dtype=torch.int32, device=dev)
+    bucket = torch.empty((ids.numel(), 2), dtype=torch.int32, device=dev)  # (slot, key)
+    INDEX(ids.data_ptr(), views, ids.shape[-1], num_rows, offsets.data_ptr(), slots.data_ptr(),
+          bucket.data_ptr(), stream)
+    return offsets, slots
+
+
 def stream_gather_backward_reference(grad: torch.Tensor, ids: torch.Tensor,
                                      num_rows: int) -> torch.Tensor:
     """Plain version of the backward on any device: grad [V, S, 16] ->
@@ -122,13 +204,14 @@ def stream_gather_backward_reference(grad: torch.Tensor, ids: torch.Tensor,
 
 
 def stream_gather_backward_emulation(grad: torch.Tensor, ids: torch.Tensor,
-                                     num_rows: int) -> torch.Tensor:
+                                     num_rows: int, index=None) -> torch.Tensor:
     """G1's schedule in PyTorch, on any device (for the tests: it reads the
-    longest row's length on the host).  The same inverse index; every
-    (view, row) but the pad row starts from 0 and adds its slots in
-    increasing slot order, the k-th slot of every row at step k."""
+    longest row's length on the host).  The index `slot_index_emulation`
+    builds (or the given (offsets, slots)); every (view, row) but the pad
+    row starts from 0 and adds its slots in index order, the k-th slot of
+    every row at step k."""
     v, s = grad.shape[:2]
-    offsets, slots = inverse_index(ids, num_rows)
+    offsets, slots = slot_index_emulation(ids, num_rows) if index is None else index
     dev = grad.device
     rows = torch.arange(num_rows - 1, device=dev)
     if ids.dim() == 1:
@@ -157,6 +240,8 @@ def _launch(grad, offsets, slots, num_rows: int, shared: bool) -> torch.Tensor:
     """Launch kernel G1 on grad [V, S, 16] and an inverse index (contiguous
     CUDA tensors): d payload [V, R, 16]."""
     v, s = grad.shape[:2]
+    if grad.data_ptr() % 16:  # the kernel reads 16-byte vectors
+        grad = grad.clone()
     out = torch.empty((v, num_rows, PAYLOAD_DIM), dtype=torch.float32, device=grad.device)
     KERNEL(grad.data_ptr(), offsets.data_ptr(), slots.data_ptr(), out.data_ptr(), v, s,
            num_rows, int(shared), _stream(grad))
@@ -164,11 +249,11 @@ def _launch(grad, offsets, slots, num_rows: int, shared: bool) -> torch.Tensor:
 
 
 def _backward_cuda(grad: torch.Tensor, ids: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """The backward on the card: the inverse index, then kernel G1."""
+    """The backward on the card: the counting pass, then kernel G1."""
     if grad.dtype != torch.float32 or grad.dim() != 3 or grad.shape[2] != PAYLOAD_DIM:
         raise ValueError(f"stream gradient {tuple(grad.shape)} {grad.dtype}: expected "
                          "[V, S, 16] float32")
-    offsets, slots = inverse_index(ids, num_rows)
+    offsets, slots = slot_index(ids, num_rows)
     return _launch(grad.contiguous(), offsets, slots, num_rows, ids.dim() == 1)
 
 

@@ -3,6 +3,7 @@ turns on one card: card busy time, wall and largest kernels of each, and
 bench's Mpix/s.
 
     python -m casualhdrsplat_torch.step_compare --parent DIR [--out FILE]
+        [--g1-inputs DIR [--g1-only]]
 
 DIR is another checkout of the repository (`git archive <commit>` unpacked
 into a git-ignored directory such as `_checkout/`).  One worker process per
@@ -17,7 +18,17 @@ own tree's package:
 - bench's step (`bench.build()`'s defaults: 100,000 Gaussians, 4 views,
   16x16 tiles), replayed likewise;
 - `bench.main`: Mpix/s, the median of its 3 windows of 12 graphed steps,
-  and their spread.
+  and their spread;
+- with --g1-inputs (the inputs `python3 chip_smoke.py --g1-inputs DIR`
+  saved: G1's calls on the packed training step, bench's step, an aligner
+  step and rank 1's sharded step), first G1 on each of them, timed with
+  CUDA events around a CUDA graph of G1_REPS calls (`graph_ms`: the
+  device time a graphed step pays): its index alone (`slot_index`, or the
+  parent's `inverse_index`), the kernel alone on that index, and the
+  backward as the path runs it (also eagerly, host launches included),
+  the index's kernels by device time (torch.profiler), with a digest of
+  its output's bits (equal across the trees: both add each row's slots in
+  slot order).  --g1-only skips the steps and bench.
 For each profiled window: the host wall and the card's busy time (the sum
 of the kernels' device time) per step, launches per step and the largest
 kernels by device time.  Prints one JSON object, and writes it to FILE when
@@ -29,6 +40,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import hashlib
 import json
 import os
 import subprocess
@@ -39,6 +51,79 @@ from pathlib import Path
 HERE = Path(__file__).resolve()
 WINDOW = 5  # replays profiled per window
 TOP = 12  # kernels listed per window
+G1_REPS = 20  # launches a G1 time averages over
+
+
+def _event_ms(fn, reps: int = G1_REPS) -> float:
+    """Mean device time of fn() in ms, by CUDA events around `reps` calls
+    after two warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = G1_REPS) -> float:
+    """Device time of fn() in ms as a CUDA graph replays it: `reps` calls
+    captured in one graph (after a warm-up call on a side stream), one
+    replay under CUDA events, per call.  No host launch cost is in it, as
+    none is in a graphed step."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _g1_turn(inputs: Path) -> dict:
+    """G1 on each saved input: index, kernel and backward ms in a CUDA
+    graph, the backward's eager ms, the index's kernels, the output's
+    digest."""
+    import torch
+
+    from casualhdrsplat_torch.ops import stream_gather as sg
+
+    index_fn = getattr(sg, "slot_index", sg.inverse_index)
+    out = {}
+    for path in sorted(inputs.glob("*.pt")):
+        grad, ids, rows = torch.load(path, map_location="cuda")
+        shared = ids.dim() == 1
+        offsets, slots = index_fn(ids, rows)
+        out[path.stem] = {
+            "index": index_fn.__name__,
+            "index_ms": graph_ms(lambda: index_fn(ids, rows)),
+            "kernel_ms": graph_ms(lambda: sg._launch(grad, offsets, slots, rows, shared)),
+            "ms": graph_ms(lambda: sg._backward_cuda(grad, ids, rows)),
+            "eager_ms": _event_ms(lambda: sg._backward_cuda(grad, ids, rows)),
+            "index_kernels": _profile(lambda: index_fn(ids, rows))["largest"],
+            "digest": _digest(sg._backward_cuda(grad, ids, rows))}
+        del grad, ids, offsets, slots
+        torch.cuda.empty_cache()
+    return out
 
 
 def _profile(fn) -> dict:
@@ -65,9 +150,15 @@ def _profile(fn) -> dict:
                          e.count // WINDOW] for e in top]}
 
 
-def _worker(root: str) -> dict:
+def _worker(root: str, g1_inputs: str | None, g1_only: bool) -> dict:
     sys.path[0] = root
     import torch
+
+    out = {}
+    if g1_inputs:
+        out["g1"] = _g1_turn(Path(g1_inputs))
+    if g1_only:
+        return out
 
     from casualhdrsplat_torch import bench, config
     from casualhdrsplat_torch.data import dataset as dataset_mod
@@ -86,7 +177,7 @@ def _worker(root: str) -> dict:
     trainer = Trainer(cfg, dataset, device=dev)
     for _ in range(3):  # warm-up, capture, a replay
         trainer.run_step()
-    out = {"packed_step": _profile(trainer.run_step)}
+    out["packed_step"] = _profile(trainer.run_step)
     del trainer, dataset
     torch.cuda.empty_cache()
 
@@ -103,8 +194,10 @@ def _worker(root: str) -> dict:
     return out
 
 
-def _turn(root: Path) -> dict:
-    proc = subprocess.run([sys.executable, str(HERE), "--worker", str(root)], cwd=root,
+def _turn(root: Path, g1_inputs, g1_only: bool) -> dict:
+    extra = (["--g1-inputs", str(g1_inputs)] if g1_inputs else []) + (
+        ["--g1-only"] if g1_only else [])
+    proc = subprocess.run([sys.executable, str(HERE), "--worker", str(root), *extra], cwd=root,
                           env=dict(os.environ, PYTHONPATH=str(root)),
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -116,10 +209,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="another checkout of the repository")
     ap.add_argument("--out", help="also write the JSON object to this file")
+    ap.add_argument("--g1-inputs", help="G1's inputs saved by chip_smoke.py --g1-inputs")
+    ap.add_argument("--g1-only", action="store_true", help="time G1 alone: no steps, no bench")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(_worker(args.worker)), flush=True)
+        print(json.dumps(_worker(args.worker, args.g1_inputs, args.g1_only)), flush=True)
         return 0
     import torch
 
@@ -128,6 +223,9 @@ def main(argv=None) -> int:
         return 2
     if not args.parent:
         ap.error("--parent is required")
+    if args.g1_only and not args.g1_inputs:
+        ap.error("--g1-only needs --g1-inputs")
+    g1_inputs = Path(args.g1_inputs).resolve() if args.g1_inputs else None
     this, parent = HERE.parents[1], Path(args.parent).resolve()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -135,21 +233,34 @@ def main(argv=None) -> int:
     turns = []
     for i, (label, root) in enumerate((("parent", parent), ("this", this), ("this", this),
                                        ("parent", parent))):
-        turn = _turn(root)
+        turn = _turn(root, g1_inputs, args.g1_only)
         turn["tree"] = label
         turns.append(turn)
-        print(f"turn {i} ({label}): packed step busy {turn['packed_step']['busy_ms']:.3f} ms, "
-              f"bench step busy {turn['bench_step']['busy_ms']:.3f} ms, bench "
-              f"{turn['bench']['value']} Mpix/s (spread {turn['bench']['spread_pct']}%)",
-              flush=True)
-    summary = {label: {
-        "packed_step_busy_ms": [t["packed_step"]["busy_ms"] for t in turns if t["tree"] == label],
-        "packed_step_wall_ms": [t["packed_step"]["wall_ms"] for t in turns if t["tree"] == label],
-        "bench_step_busy_ms": [t["bench_step"]["busy_ms"] for t in turns if t["tree"] == label],
-        "bench_step_wall_ms": [t["bench_step"]["wall_ms"] for t in turns if t["tree"] == label],
-        "bench_mpix_s": [t["bench"]["value"] for t in turns if t["tree"] == label],
-        "bench_spread_pct": [t["bench"]["spread_pct"] for t in turns if t["tree"] == label],
-    } for label in ("parent", "this")}
+        parts = []
+        if "g1" in turn:
+            parts.append("G1 ms " + json.dumps({c: r["ms"] for c, r in turn["g1"].items()}))
+        if "packed_step" in turn:
+            parts.append(f"packed step busy {turn['packed_step']['busy_ms']:.3f} ms, bench step "
+                         f"busy {turn['bench_step']['busy_ms']:.3f} ms, bench "
+                         f"{turn['bench']['value']} Mpix/s (spread {turn['bench']['spread_pct']}%)")
+        print(f"turn {i} ({label}): " + "; ".join(parts), flush=True)
+    summary = {}
+    for label in ("parent", "this"):
+        mine = [t for t in turns if t["tree"] == label]
+        summary[label] = {key: [t[name][field] for t in mine] for key, name, field in (
+            ("packed_step_busy_ms", "packed_step", "busy_ms"),
+            ("packed_step_wall_ms", "packed_step", "wall_ms"),
+            ("bench_step_busy_ms", "bench_step", "busy_ms"),
+            ("bench_step_wall_ms", "bench_step", "wall_ms"),
+            ("bench_mpix_s", "bench", "value"),
+            ("bench_spread_pct", "bench", "spread_pct")) if name in mine[0]}
+        if g1_inputs:
+            summary[label]["g1"] = {
+                case: {k: [t["g1"][case][k] for t in mine] for k in mine[0]["g1"][case]}
+                for case in mine[0]["g1"]}
+    if g1_inputs:
+        summary["g1_bits_equal_across_trees"] = all(
+            len({t["g1"][case]["digest"] for t in turns}) == 1 for case in turns[0]["g1"])
     result = {"card": smi, "window": WINDOW, "summary": summary, "turns": turns}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (casualhdrsplat_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--g1-inputs DIR]
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
    started together, sm_90a: B1-B4, both halves of kernel T1, the CRF
-   MLP of ops/crf_fused.py, and G1, the packed stream gather's transpose
-   of ops/stream_gather.py) and prints ptxas's register and spill lines;
+   MLP of ops/crf_fused.py, G1, the packed stream gather's transpose of
+   ops/stream_gather.py, and the counting pass that builds G1's index)
+   and prints ptxas's register and spill lines;
    then T1's instruction mix per element from its SASS (cuobjdump) and the
    least time its MUFU pipes and issue slots need for a frame, and T1 at
    64 units against its plain versions.
@@ -84,13 +85,17 @@
    atomics add in an order that changes from run to run: its largest
    run-to-run difference is logged); G1 also against the PyTorch emulation
    of its schedule, to the bit, on the packed training step, bench's step,
-   an aligner step (per-view ids) and rank 1's sharded step; and the
+   an aligner step (per-view ids) and rank 1's sharded step, and its
+   counting index against the sort it replaced (every real row's list of
+   slots; with --g1-inputs DIR those four inputs are saved there, for
+   casualhdrsplat_torch.step_compare's G1 turns); and the
    slices on the card against the same on the CPU at a small size (the
    rendered frame; the gradients of one packed training step; a dense
    training step, a densify round and the step after it).
 10. Times each kernel with CUDA events at the paths' shapes (G1 also beside
    the library call the port ran before, gather's scatter_add_ or
-   index_add_, and its inverse index alone), the packed ones
+   index_add_, and its index alone, the counting pass and the sort it
+   replaced), the packed ones
    also at the same frame on 16x16 tiles and at bench.py::build's shapes
    (16x16 tiles, 4 views, 100k Gaussians), beside its plain version and its
    bound; T1 against its plain versions (forward atol T1_ATOL, backward at
@@ -120,8 +125,10 @@
 14. With --profile, prints the largest kernels of every profiled window
    (torch.profiler) and profiles the dense serving requests and the
    sharded steps too.
-15. Prints a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
-   {...}}`.
+15. Prints a `{"kernels": [...]}` line (G1's index an entry of its own,
+   its launches read from its own counter wherever G1's are counted above,
+   and equal to them; G1's `ms` holds its index's, `kernel_ms` is the
+   kernel alone) and, last, `{"ok": true, "device": {...}}`.
 
 Any failed phase exits non-zero without the last line.  There is no CPU
 fallback: without a CUDA device the script exits 2 at once.
@@ -780,19 +787,48 @@ def capture_backwards(fn):
     return b2, g1
 
 
+def g1_real_lists(offsets, slots, ids, rows):
+    """(each real row's slot count, its slots concatenated in key order) of
+    a stream index: what G1 reads, whatever the pad rows hold."""
+    import torch
+
+    from casualhdrsplat_torch.ops import stream_gather as sg
+
+    keys = sg._keys(ids, rows).long()
+    counts = offsets[1:] - offsets[:-1]
+    real_key = torch.arange(counts.numel(), device=counts.device) % rows != rows - 1
+    placed = slots[:int(offsets[-1])].long()
+    return counts[real_key], placed[keys[placed] % rows != rows - 1]
+
+
+def g1_inputs_dir():
+    """The directory after --g1-inputs, where measure_g1 saves each input it
+    measures (for step_compare's G1 turns), or None."""
+    args = sys.argv[1:]
+    return args[args.index("--g1-inputs") + 1] if "--g1-inputs" in args else None
+
+
 def measure_g1(label, call, reps):
     """Kernel G1 (ops/stream_gather.py) on one captured call of the card's
     backward (d stream [V, S, 16], ids [S] shared or [V, S] per view, rows
     R): equal to the PyTorch emulation of its schedule to the bit, two
     launches equal to the bit, and within the backward tolerance of its
-    plain version (index_add_, float atomics on the card).  Times with CUDA
-    events: the backward as the path runs it (`ms`: the inverse index and
-    the kernel), each alone, the plain version, and the library call the
-    port ran before (gather's backward, scatter_add_ with the index
-    expanded over the views, for shared ids; index_add_ per view).  The
-    bound: the function reads every id once and the gradient row of each
-    slot that names a real row (not the pad id) once a view, and writes the
-    [V, R, 16] gradient once; one add per element read."""
+    plain version (index_add_, float atomics on the card).  Its index, the
+    counting pass (`slot_index`), gives every real row the list of slots
+    the sort (`inverse_index`, its plain version) gives it, the same from
+    launch to launch.  Times with CUDA events around `reps` calls back to
+    back, as every kernel of the kernels line is timed (host launches
+    included where they are slower than the card; step_compare times G1
+    in a CUDA graph): the backward as the path runs it (`ms`: the index
+    and the kernel), each alone (`index_ms`, `kernel_ms`), the sort the
+    index replaced (`sort_index_ms`), the plain version, and the library
+    call the port ran before G1 (gather's backward, scatter_add_ with the
+    index expanded over the views, for shared ids; index_add_ per view).
+    The bound: the function reads every
+    id once and the gradient row of each slot that names a real row (not
+    the pad id) once a view, and writes the [V, R, 16] gradient once; one
+    add per element read.  The index's own bound (under "index"): the ids
+    read once, the offsets and the placed slots written once."""
     import torch
 
     from casualhdrsplat_torch.ops import stream_gather as sg
@@ -800,6 +836,9 @@ def measure_g1(label, call, reps):
     grad, ids, rows = call
     v, s = grad.shape[:2]
     shared = ids.dim() == 1
+    if g1_inputs_dir():
+        os.makedirs(g1_inputs_dir(), exist_ok=True)
+        torch.save(call, os.path.join(g1_inputs_dir(), f"{label}.pt"))
     with uncounted(), torch.no_grad():
         got = sg._backward_cuda(grad, ids, rows)
         again = sg._backward_cuda(grad, ids, rows)
@@ -810,7 +849,19 @@ def measure_g1(label, call, reps):
         largest = float(plain.abs().max())
         err, outliers = grad_outliers(got, plain, largest)
         del again, emulated, plain
-        offsets, slots = sg.inverse_index(ids, rows)
+        offsets, slots = sg.slot_index(ids, rows)
+        offsets2, slots2 = sg.slot_index(ids, rows)
+        placed = int(offsets[-1])
+        index_deterministic = (torch.equal(offsets, offsets2)
+                               and torch.equal(slots[:placed], slots2[:placed]))
+        del offsets2, slots2
+        counts, lists = g1_real_lists(offsets, slots, ids, rows)
+        want_counts, want_lists = g1_real_lists(*sg.inverse_index(ids, rows), ids, rows)
+        index_err = int((counts - want_counts).abs().max())
+        if index_err == 0:
+            index_err = int((lists - want_lists).abs().max()) if lists.numel() else 0
+        longest = int(counts.max()) if counts.numel() else 0
+        del counts, lists, want_counts, want_lists
         if shared:
             index = ids.long()[None, :, None].expand(v, -1, grad.shape[2])
 
@@ -825,22 +876,30 @@ def measure_g1(label, call, reps):
                     0, keys, flat)
         ms = event_ms(lambda: sg._backward_cuda(grad, ids, rows), reps)
         kernel_ms = event_ms(lambda: sg._launch(grad, offsets, slots, rows, shared), reps)
-        inverse_ms = event_ms(lambda: sg.inverse_index(ids, rows), reps)
+        index_ms = event_ms(lambda: sg.slot_index(ids, rows), reps)
+        sort_index_ms = event_ms(lambda: sg.inverse_index(ids, rows), reps)
         plain_ms = event_ms(lambda: sg.stream_gather_backward_reference(grad, ids, rows), reps)
         library_ms = event_ms(library, reps)
         live = int((ids < rows - 1).sum())
     reads = live * (v if shared else 1)
     nbytes = reads * grad.shape[2] * 4 + ids.numel() * 4 + got.numel() * 4
     bound_ms, bound_by = roofline(nbytes, reads * grad.shape[2])
+    index_bytes = ids.numel() * 4 + offsets.numel() * 4 + placed * 4
+    index_bound_ms, index_bound_by = roofline(index_bytes, 0)
     res = dict(
         label=label, views=v, slots_per_view=s, rows=rows,
-        ids="shared" if shared else "per view", slots_naming_a_row=live, bound_bytes=nbytes,
+        ids="shared" if shared else "per view", slots_naming_a_row=live,
+        longest_row=longest, bound_bytes=nbytes,
         max_abs_err=err, largest_gradient=largest, outliers=outliers,
         equal_to_emulation=equal, deterministic=deterministic,
-        ms=ms, kernel_ms=kernel_ms, inverse_ms=inverse_ms, plain_ms=plain_ms,
-        library_ms=library_ms,
+        ms=ms, kernel_ms=kernel_ms, index_ms=index_ms, sort_index_ms=sort_index_ms,
+        plain_ms=plain_ms, library_ms=library_ms,
         library="scatter_add_" if shared else "index_add_",
-        bound_ms=bound_ms, bound_by=bound_by,
+        bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        kernel_share_of_bound=bound_ms / kernel_ms,
+        index=dict(max_abs_err=index_err, deterministic=index_deterministic, ms=index_ms,
+                   plain_ms=sort_index_ms, bound_bytes=index_bytes, bound_ms=index_bound_ms,
+                   bound_by=index_bound_by),
     )
     log(f"G1[{label}]: " + json.dumps(res))
     if not (equal and deterministic and outliers == 0):
@@ -848,6 +907,10 @@ def measure_g1(label, call, reps):
             f"G1[{label}]: equal to its emulation {equal}, two launches equal "
             f"{deterministic}, {outliers} elements outside the backward tolerance of the plain "
             f"version (max abs err {err} against a largest value of {largest})")
+    if index_err or not index_deterministic:
+        raise AssertionError(
+            f"G1[{label}]: the counting index differs from the sort's on a real row (max abs "
+            f"err {index_err}) or between two launches ({not index_deterministic})")
     return res
 
 
@@ -933,6 +996,9 @@ def eager_and_graphed(name, eager, graphed, reps=3):
 
 # every eager_and_graphed row of this run, printed together at the end
 WINDOWS = []
+# G1's index's launches in each phase, read from its own counter where the
+# phase reads G1's (and checked equal to them): the kernels line's count
+INDEX_LAUNCHES = {}
 
 
 def small_slice_check(device):
@@ -1321,7 +1387,8 @@ def run_timed_steps(trainer, steps, kernels, label, after_step=None):
 def train_phase(device, dataset, rp):
     """The packed training path at the full width of ladder4-full: returns
     (launches of B1, of B2 and of G1, the B2 measurement at its shape, T1's
-    measurements, G1's)."""
+    measurements, G1's).  G1's index is launched once per G1 launch
+    (checked here and in every phase below)."""
     import torch
 
     from casualhdrsplat_torch import config
@@ -1348,13 +1415,17 @@ def train_phase(device, dataset, rp):
     _, t_warm = timed(trainer.run_step)
     log(f"warm-up step (the graph's, eager): {t_warm:.3f} s")
     count_before = int(trainer.adc.count.sum())
-    run_timed_steps(trainer, TRAIN_STEPS, (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL),
+    run_timed_steps(trainer, TRAIN_STEPS, (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX),
                     "packed training")
     if int(trainer.adc.count.sum()) <= count_before:
         raise AssertionError("the density-control visibility counts did not rise")
     run_to_run(trainer, "packed training")
     eager_and_graphed("packed training step", trainer.run_step_eager, trainer.run_step)
     launches = rp.FWD_KERNEL.launches, rp.BWD_KERNEL.launches, sg.KERNEL.launches
+    if sg.INDEX.launches != sg.KERNEL.launches:
+        raise AssertionError(f"packed training: G1 {sg.KERNEL.launches} launches, its index "
+                             f"{sg.INDEX.launches}")
+    INDEX_LAUNCHES["packed training"] = sg.INDEX.launches
 
     # kernels B2, G1 and T1 on the inputs a training step gives them
     frame = int(trainer.dataset.train_indices[1])
@@ -1726,8 +1797,8 @@ class CallTimer:
 def cli_phase(device, dataset, rp):
     """The command line at full width on a COLMAP capture of the training
     video, then the viewer and both pose aligners on the trained scene:
-    returns (launches of B1, of B2 and of G1, the B2 measurement on an
-    aligner step)."""
+    returns (launches of B1, of B2 and of G1, G1's measurement on an aligner
+    step)."""
     from casualhdrsplat_torch import cli
     from casualhdrsplat_torch import config
     from casualhdrsplat_torch.data import dataset as dataset_mod
@@ -1736,20 +1807,21 @@ def cli_phase(device, dataset, rp):
     from casualhdrsplat_torch.train import checkpoint as ckpt
     from casualhdrsplat_torch.train import trainer as trainer_mod
 
-    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
-    total = np.zeros(3, np.int64)
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX)
+    total = np.zeros(4, np.int64)
 
     def count(fn):
         """(fn(), the launches of B1 and B2 during it), which also add to
-        the phase's total with G1's; every packed backward launches G1
-        once, so G1 must count what B2 counts."""
+        the phase's total with G1's; every packed backward launches G1 and
+        its index once, so they must count what B2 counts."""
         for k in kernels:
             k.launches = 0
         out = fn()
         n = tuple(k.launches for k in kernels)
         total[:] += n
-        if n[2] != n[1]:
-            raise AssertionError(f"G1 once per packed backward: B2 {n[1]}, G1 {n[2]}")
+        if not n[1] == n[2] == n[3]:
+            raise AssertionError(f"G1 and its index once per packed backward: B2 {n[1]}, "
+                                 f"G1 {n[2]}, index {n[3]}")
         return out, n[:2]
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1846,9 +1918,11 @@ def cli_phase(device, dataset, rp):
             f"equal to the checkpoint's alive rows")
 
     viewer_phase(trainer, count)
-    res = aligner_phase(trainer, count, rp)
-    log(f"command-line phase launches: B1 {total[0]}, B2 {total[1]}, G1 {total[2]}")
-    return int(total[0]), int(total[1]), int(total[2]), res
+    g1 = aligner_phase(trainer, count, rp)
+    log(f"command-line phase launches: B1 {total[0]}, B2 {total[1]}, G1 {total[2]}, its "
+        f"index {total[3]}")
+    INDEX_LAUNCHES["command line"] = int(total[3])
+    return int(total[0]), int(total[1]), int(total[2]), g1
 
 
 # Resume on the card: the continuation from step_3 and the uninterrupted
@@ -1964,7 +2038,7 @@ def aligner_phase(trainer, count, rp):
     (whose window repeats the last knot) against their clean renders with
     that offset put into the window's knots, 48 steps each; then B1, B2
     and G1 against their plain versions on one aligner step's inputs (the
-    per-view packed branch's backward).  Returns the B2 measurement."""
+    per-view packed branch's backward).  Returns G1's measurement."""
     import torch
 
     from casualhdrsplat_torch.geometry import lie
@@ -2003,11 +2077,10 @@ def aligner_phase(trainer, count, rp):
     # kernels B1, B2 and G1 on the inputs one aligner step gives them
     (bwd_call,), (g1_call,) = capture_backwards(lambda: pose_align.make_aligner(
         m, steps=1)(p, scene, vm_off, dt, target))
-    res = measure_backward("aligner_step", bwd_call, reps=20)
+    measure_backward("aligner_step", bwd_call, reps=20)
     with torch.no_grad():
         measure_compositor("aligner_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=20)
-    measure_g1("aligner_step", g1_call, reps=20)
-    return res
+    return measure_g1("aligner_step", g1_call, reps=20)
 
 
 def log_alignment(name, curve, seconds, b1, b2, b1_expected):
@@ -2068,7 +2141,7 @@ def quality_phase(device, rp):
     from casualhdrsplat_torch.ops import stream_gather as sg
     from casualhdrsplat_torch.train import trainer as trainer_mod
 
-    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX)
     per_step, captured, step_s = [], [], []
     run_step = trainer_mod.Trainer.run_step
 
@@ -2104,6 +2177,8 @@ def quality_phase(device, rp):
         finally:
             trainer_mod.Trainer.run_step = run_step
         launches = tuple(k.launches for k in kernels)
+        index_launches, launches = launches[3], launches[:3]
+        INDEX_LAUNCHES["quality run"] = index_launches
         with open(out) as f:
             report = json.load(f)
     coarse, full = step_s[1:QUALITY_COARSE], step_s[QUALITY_COARSE + 1:]
@@ -2131,8 +2206,10 @@ def quality_phase(device, rp):
         rung = [p["eval_psnr"] for p in curve if p["res"] == res]
         if len(rung) < 2 or not rung[-1] > rung[0]:
             raise AssertionError(f"quality run: eval_psnr at {res}x{res} did not rise: {rung}")
-    if len(per_step) != QUALITY_STEPS or set(per_step) != {(1, 1, 1)}:
-        raise AssertionError(f"quality run: B1, B2 and G1 once per step, got {set(per_step)}")
+    if (len(per_step) != QUALITY_STEPS or set(per_step) != {(1, 1, 1, 1)}
+            or index_launches != launches[2]):
+        raise AssertionError(f"quality run: B1, B2, G1 and its index once per step, got "
+                             f"{set(per_step)}; G1 {launches[2]}, index {index_launches}")
 
     # kernels B1 and B2 on the last step's inputs: 800x800, 8 views of
     # 16x16 tiles, chunk 256, per-view binning into 12 x 131,072-row streams
@@ -2155,13 +2232,15 @@ def bench_phase(device, rp):
     from casualhdrsplat_torch import bench
     from casualhdrsplat_torch.ops import stream_gather as sg
 
-    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX)
     for k in kernels:
         k.launches = 0
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         rc, seconds = timed(lambda: bench.main(["--device", device.type]))
     launches = tuple(k.launches for k in kernels)
+    index_launches, launches = launches[3], launches[:3]
+    INDEX_LAUNCHES["bench"] = index_launches
     lines = text.getvalue().strip().splitlines()
     for line in lines:
         log(line)
@@ -2171,8 +2250,9 @@ def bench_phase(device, rp):
         f"B2 {launches[1]}, G1 {launches[2]}")
     if rc != 0 or result["metric"] != "rendered Mpix/s/chip fwd+bwd" or not result["value"] > 0:
         raise AssertionError(f"bench: exit {rc}, line {result}")
-    if launches != (steps, steps, steps):
-        raise AssertionError("bench: B1, B2 and G1 once per step")
+    if launches != (steps, steps, steps) or index_launches != steps:
+        raise AssertionError(f"bench: B1, B2, G1 and its index once per step, got {launches}, "
+                             f"index {index_launches}")
     step, args, pixels = bench.build(device=device)
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
@@ -2294,8 +2374,8 @@ def sharded_world_of_one(device, dataset, rp):
             walls = {"one-device": [], "mesh (1, 1)": []}
             outs = {k: [] for k in walls}
             mesh.stats.clear()
-            kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
-            launches = (0, 0, 0)
+            kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX)
+            launches = (0, 0, 0, 0)
             # the two trainers' steps alternate, so that a drift of the
             # host's or the card's speed reaches both alike
             for _ in range(TRAIN_STEPS):
@@ -2321,8 +2401,10 @@ def sharded_world_of_one(device, dataset, rp):
                     {k: [round(w * 1e3, 2) for w in v] for k, v in walls.items()}))
             for line in collective_lines(mesh.stats, TRAIN_STEPS):
                 log(line)
-            if launches != (TRAIN_STEPS,) * 3:
-                raise AssertionError("mesh (1, 1): B1, B2 and G1 once per step")
+            if launches != (TRAIN_STEPS,) * 4:
+                raise AssertionError("mesh (1, 1): B1, B2, G1 and its index once per step")
+            INDEX_LAUNCHES["mesh (1, 1)"] = launches[3]
+            launches = launches[:3]
             if "--profile" in sys.argv[1:]:
                 profile_window("one-device per-view step", one.run_step_eager)
                 profile_window("mesh (1, 1) step", sharded.run_step_eager)
@@ -2354,7 +2436,7 @@ def sharded_rank(rank, device, dataset, cfgs, refs):
     from casualhdrsplat_torch.train.trainer import Trainer
 
     kernels = {"B1": rp.FWD_KERNEL, "B2": rp.BWD_KERNEL, "B3": rd.FWD_KERNEL,
-               "B4": rd.BWD_KERNEL, "G1": sg.KERNEL}
+               "B4": rd.BWD_KERNEL, "G1": sg.KERNEL, "G1 index": sg.INDEX}
     # each branch's backward launcher, whose captured call also holds the
     # forward's inputs
     launchers = {"packed": (rp, "_backward_cuda"), "dense": (rd, "backward")}
@@ -2510,8 +2592,10 @@ def sharded_world_of_two(device, dataset):
         raise AssertionError(f"rank {MEASURED_RANK} checked the kernels on {sorted(checked)}")
     log(f"sharded, world of 2 (gloo, both ranks on cuda:0; not NCCL across cards): "
         f"{seconds:.1f} s; launches over both ranks {launches}")
-    if any(v <= 0 for v in launches.values()):
-        raise AssertionError(f"the two-rank world did not launch every kernel: {launches}")
+    if any(v <= 0 for v in launches.values()) or launches["G1 index"] != launches["G1"]:
+        raise AssertionError(f"the two-rank world did not launch every kernel, or G1's index "
+                             f"not once per G1: {launches}")
+    INDEX_LAUNCHES["world of 2"] = launches["G1 index"]
     return launches, checked[str(SHARDED_MESHES[0])]["G1 measured"]
 
 
@@ -2526,7 +2610,7 @@ def sharded_bench_and_dryrun(device):
     from casualhdrsplat_torch.ops import rasterize_packed as rp
     from casualhdrsplat_torch.ops import stream_gather as sg
 
-    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL)
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX)
     for k in kernels:
         k.launches = 0
     text = io.StringIO()
@@ -2540,8 +2624,10 @@ def sharded_bench_and_dryrun(device):
     steps = bench.WARMUP_STEPS + bench.N_WINDOWS * bench.ITERS_PER_WINDOW
     log(f"bench --sharded 1,1: {steps} steps in {seconds:.1f} s with the build; launches "
         f"B1 {launches[0]}, B2 {launches[1]}, G1 {launches[2]}")
-    if rc != 0 or not result["value"] > 0 or launches != [steps] * 3:
+    if rc != 0 or not result["value"] > 0 or launches != [steps] * 4:
         raise AssertionError(f"bench --sharded 1,1: exit {rc}, {result}, launches {launches}")
+    INDEX_LAUNCHES["bench --sharded 1,1"] = launches[3]
+    launches = launches[:3]
     results, seconds = timed(lambda: entry.dryrun_multichip(2, device=device.type,
                                                             backend="gloo"))
     for r in results:
@@ -2600,7 +2686,7 @@ def main() -> int:
     # -- build ---------------------------------------------------------------
     # one nvcc per source, all started together
     kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, rd.FWD_KERNEL, rd.BWD_KERNEL,
-               crf_fused.FWD_KERNEL, crf_fused.BWD_KERNEL, sg.KERNEL)
+               crf_fused.FWD_KERNEL, crf_fused.BWD_KERNEL, sg.KERNEL, sg.INDEX)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         for future in [pool.submit(k.load) for k in kernels]:
@@ -2724,7 +2810,8 @@ def main() -> int:
     sharded = {"B1": one[0] + two["B1"] + bench_dry[0], "B2": one[1] + two["B2"] + bench_dry[1],
                "B3": two["B3"], "B4": two["B4"], "G1": one[2] + two["G1"] + bench_dry[2]}
     log(f"sharded phase launches: {sharded}")
-    cli_fwd_launches, cli_bwd_launches, cli_g1_launches, _ = cli_phase(device, dataset, rp)
+    cli_fwd_launches, cli_bwd_launches, cli_g1_launches, g1_aligner = cli_phase(
+        device, dataset, rp)
     del dataset
     quality_fwd_launches, quality_bwd_launches, quality_g1_launches, _ = quality_phase(
         device, rp)
@@ -2734,10 +2821,12 @@ def main() -> int:
     log(f"T1 launches on the main path: forward {t1_launches[0]}, backward {t1_launches[1]} "
         f"(the sharded phase's second rank not counted)")
     g1_bench = bench_shapes(device)
-    log("G1 on the main path's inputs (ms: the inverse index and the kernel; library: the "
-        "transpose the port ran before): " + json.dumps({r["label"]: {k: r[k] for k in (
-            "ms", "kernel_ms", "inverse_ms", "library_ms", "plain_ms", "bound_ms")}
-            for r in (g1_step, g1_bench, g1_sharded)}))
+    log("G1 on the main path's inputs (ms: the counting index and the kernel; sort_index: "
+        "the sort it replaced; library: the transpose the port ran before): " + json.dumps(
+            {r["label"]: {k: r[k] for k in (
+                "ms", "kernel_ms", "index_ms", "sort_index_ms", "library_ms", "plain_ms",
+                "bound_ms", "share_of_bound", "kernel_share_of_bound")}
+             for r in (g1_step, g1_bench, g1_aligner, g1_sharded)}))
     with torch.inference_mode():
         small_slice_check(device)
     small_train_step_check(device)
@@ -2764,16 +2853,25 @@ def main() -> int:
         dict(kernel_entry("crf_mlp_bwd", "", t1_launches[1], t1_step[1]),
              name="crf_fused_bwd", replaces="casualhdrsplat_tpu/models/crf.py:132"),
         # G1 stands for XLA's transpose of the packed stream gather (no
-        # pallas_call there), measured on the training step's inputs; the
-        # library call is the scatter_add_ the port ran before
+        # pallas_call there), measured on the training step's inputs: its
+        # ms the backward as the path runs it, the index and the kernel
+        # (kernel_ms the kernel alone); the library call is the
+        # scatter_add_ the port ran before
         dict(kernel_entry("stream_gather_bwd", "rasterize.py:310",
                           train_g1_launches + cli_g1_launches + quality_g1_launches
                           + bench_g1_launches + sharded["G1"], g1_step),
-             library_ms=g1_step["library_ms"]),
+             library_ms=g1_step["library_ms"], ms_includes="stream_gather_index",
+             kernel_ms=g1_step["kernel_ms"]),
+        # G1's index, the counting pass, by its own counter (its plain
+        # version: the sort)
+        kernel_entry("stream_gather_index", "rasterize.py:310",
+                     sum(INDEX_LAUNCHES.values()), g1_step["index"]),
     ]
     idle = [k["name"] for k in kernels_line if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels the main path never launched: {idle}")
+    if kernels_line[-1]["launches"] != kernels_line[-2]["launches"]:
+        raise AssertionError(f"G1's index not once per G1 launch: {INDEX_LAUNCHES}")
     log(f"T1 on the training step's inputs: forward {json.dumps(t1_step[0])}, backward "
         f"{json.dumps(t1_step[1])}")
     log("eager and graphed windows: " + json.dumps(WINDOWS))

@@ -383,6 +383,8 @@ def test_graphed_step_matches_eager_across_a_densify_round(cuda, packed):
     graphed, eager = _twins(packed, cuda)
     kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL) if packed else (rd.FWD_KERNEL, rd.BWD_KERNEL)
     kernels += (crf_fused.FWD_KERNEL, crf_fused.BWD_KERNEL)
+    if packed:  # G1 and the counting pass that builds its index
+        kernels += (stream_gather.KERNEL, stream_gather.INDEX)
     for step in range(6):  # warm-up, capture, replays; a round at 2 and 4, a reset at 3
         before = [k.launches for k in kernels]
         a = graphed.run_step()
@@ -393,7 +395,8 @@ def test_graphed_step_matches_eager_across_a_densify_round(cuda, packed):
         for key in a:
             np.testing.assert_allclose(a[key], b[key], rtol=1e-3, atol=1e-4, err_msg=key)
         # a replay counts the launches the eager step makes (B1/B2 or B3/B4
-        # once, T1 once for the frame and once for each CRF prior's curve)
+        # once, T1 once for the frame and once for each CRF prior's curve,
+        # G1 and its index once)
         graphed_n = [m - n for m, n in zip(mid, before)]
         assert graphed_n == [x - m for x, m in zip(after, mid)] and graphed_n[0] == 1, step
     call = graphed._step_graphs.call

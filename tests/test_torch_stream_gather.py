@@ -19,7 +19,14 @@ reference's `payload[stream_ids]` under `jax.vmap`) and per-view ids
 - the emulation of G1's schedule equals the plain version (`index_add_`)
   to the bit;
 - the inverse index holds every slot once, in increasing order within its
-  row, under its own row.
+  row, under its own row;
+- the emulation of the counting pass that builds G1's index on the card
+  (`slot_index_emulation`: histogram, scan, a placement stable by
+  construction) gives every real row the list `inverse_index` gives it, on
+  those streams, on ids all pad, on an empty stream, on a row holding
+  max_tiles_per_gaussian slots and under a random bucketing order; and
+  G1's emulation fed the index of a random bucketing order still equals
+  the plain version to the bit.
 Also: the function checks its inputs, without grad it is the gather
 alone, and `step_compare` (G1's parent-against-this measurement) exits 2
 without a card.
@@ -28,7 +35,10 @@ On the card (marked `cuda`, skipped here; JAX is imported only by the CPU
 tests, so the file runs with --noconftest there): the kernel equal to the
 emulation to the bit, two launches equal to the bit, and the kernel within
 BWD_ATOL_REL x the largest + BWD_RTOL (chip_smoke.py's backward tolerance:
-1e-4, 1e-3) of `scatter_add_`, which adds with float atomics.
+1e-4, 1e-3) of `scatter_add_`, which adds with float atomics; the index
+kernel equal to its emulation (offsets, and the placed slots) on the CPU
+cases above; G1 at the quality run's per-view size and past 2^31 gradient
+elements.
 """
 
 import numpy as np
@@ -36,6 +46,7 @@ import pytest
 import torch
 
 from casualhdrsplat_torch.ops import binning as t_binning
+from casualhdrsplat_torch.ops import cuda_build
 from casualhdrsplat_torch.ops import stream_gather as sg
 
 N, WIDTH, HEIGHT, TILE_H, TILE_W, MTPG, CHUNK = 200, 64, 48, 8, 16, 16, 32
@@ -197,6 +208,90 @@ def test_inverse_index_holds_every_slot_once_in_order(mode):
     assert int(offsets[N + 1] - offsets[N]) > 0  # the pad tail is one row's
 
 
+def _index_case(mode: str, case: str, views: int = 3):
+    """Stream ids for the index tests: [S] shared or [V, S] per view, with
+    N + 1 rows (N the pad id)."""
+    if case in ("overflow", "tail", "shuffled"):
+        _, ids, _, _ = _case(mode, "tail" if case == "shuffled" else case, views=views,
+                             reference=False)
+        return torch.as_tensor(ids)
+    rng = np.random.default_rng(7)
+    shape = (500,) if mode == "shared" else (views, 500)
+    if case == "all_pad":
+        return torch.full(shape, N, dtype=torch.int32)
+    if case == "empty":
+        return torch.zeros(shape[:-1] + (0,), dtype=torch.int32)
+    # one row (7) in MTPG slots of every view, the rest random, a pad tail
+    ids = rng.integers(0, N, size=shape).astype(np.int32)
+    ids[ids == 7] = 8
+    ids[..., 400:] = N
+    for row in ids.reshape(-1, 500):
+        row[rng.choice(400, MTPG, replace=False)] = 7
+    return torch.as_tensor(ids)
+
+
+def _real_lists(offsets, slots, ids):
+    """(each real row's slot count, its slots concatenated in key order):
+    the information G1 reads, whatever the pad rows hold."""
+    keys = sg._keys(ids, N + 1).long()
+    n_keys = offsets.numel() - 1
+    counts = (offsets[1:] - offsets[:-1]).long()
+    real_key = torch.arange(n_keys) % (N + 1) != N
+    placed = slots[:int(offsets[-1])].long()
+    placed = placed[(keys[placed] % (N + 1)) != N] if placed.numel() else placed
+    return counts[real_key], placed
+
+
+INDEX_CASES = ["overflow", "tail", "all_pad", "empty", "long_row", "shuffled"]
+
+
+@pytest.mark.parametrize("case", INDEX_CASES)
+@pytest.mark.parametrize("mode", ["shared", "per_view"])
+def test_counting_index_emulation_equals_inverse_index(mode, case):
+    ids = _index_case(mode, case)
+    order = None
+    if case == "shuffled":
+        order = torch.as_tensor(np.random.default_rng(3).permutation(ids.numel()))
+    offsets, slots = sg.slot_index_emulation(ids, N + 1, order)
+    views = 1 if mode == "shared" else ids.shape[0]
+    assert offsets.dtype == slots.dtype == torch.int32
+    assert offsets.shape == (views * (N + 1) + 1,) and slots.shape == (ids.numel(),)
+    counts, placed = _real_lists(offsets, slots, ids)
+    want_counts, want = _real_lists(*sg.inverse_index(ids, N + 1), ids)
+    assert torch.equal(counts, want_counts) and torch.equal(placed, want)
+    # the pad rows hold nothing, so the placed slots are the real ones alone
+    assert int(offsets[-1]) == int((ids != N).sum()) == placed.numel()
+    if case == "long_row":
+        assert int(counts[7]) == MTPG and int(counts.max()) == MTPG
+    if case in ("all_pad", "empty"):
+        assert int(offsets.abs().max()) == 0
+
+
+@pytest.mark.parametrize("mode", ["shared", "per_view"])
+def test_emulation_on_a_shuffled_placement_equals_the_plain_version(mode):
+    """The bucketing's order (the kernel's atomics) does not reach the sums:
+    the placement puts each row's slots back in increasing order."""
+    _, ids, cot, _ = _case(mode, "overflow", reference=False)
+    ids, cot = torch.as_tensor(ids), torch.as_tensor(cot)
+    rng = np.random.default_rng(11)
+    plain = sg.stream_gather_backward_reference(cot, ids, N + 1)
+    for _ in range(3):
+        order = torch.as_tensor(rng.permutation(ids.numel()))
+        index = sg.slot_index_emulation(ids, N + 1, order)
+        assert torch.equal(sg.stream_gather_backward_emulation(cot, ids, N + 1, index), plain)
+
+
+def test_counting_index_runs_on_the_card_only():
+    """On the CPU the backward is index_add_ and builds no index; the
+    counting pass refuses a CPU tensor rather than stand in for its plain
+    version.  Its histogram call is a part of its launch: only the
+    placement's entry point counts (and is registered for graph replays)."""
+    with pytest.raises(ValueError, match="card"):
+        sg.slot_index(torch.zeros(4, dtype=torch.int32), 3)
+    assert any(c is sg.INDEX for c in cuda_build.COUNTERS)
+    assert not any(c is sg.INDEX_COUNT for c in cuda_build.COUNTERS)
+
+
 def test_gather_checks_its_inputs_and_skips_autograd_without_grad():
     payload = torch.zeros(2, 5, 16)
     ids = torch.tensor([0, 4, 2], dtype=torch.int32)
@@ -240,10 +335,10 @@ def cuda():
 def test_kernel_matches_emulation_on_the_card(cuda, mode, kind):
     _, ids, cot, _ = _case(mode, kind, reference=False)
     ids, cot = torch.as_tensor(ids, device=cuda), torch.as_tensor(cot, device=cuda)
-    before = sg.KERNEL.launches
+    before = sg.KERNEL.launches, sg.INDEX.launches
     got = sg._backward_cuda(cot, ids, N + 1)
     again = sg._backward_cuda(cot, ids, N + 1)
-    assert sg.KERNEL.launches == before + 2
+    assert (sg.KERNEL.launches, sg.INDEX.launches) == (before[0] + 2, before[1] + 2)
     assert torch.equal(got, again)
     assert torch.equal(got, sg.stream_gather_backward_emulation(cot, ids, N + 1))
     assert torch.equal(got.cpu(), sg.stream_gather_backward_emulation(cot.cpu(), ids.cpu(),
@@ -274,3 +369,45 @@ def test_kernel_at_a_larger_stream_on_the_card(cuda):
                                rtol=BWD_RTOL)
     per_view = ids[None].expand(8, -1).contiguous()
     assert torch.equal(sg._backward_cuda(cot, per_view, rows), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INDEX_CASES)
+@pytest.mark.parametrize("mode", ["shared", "per_view"])
+def test_index_kernel_matches_emulation_on_the_card(cuda, mode, case):
+    """The counting pass on the card: its offsets equal the emulation's, its
+    placed slots too (the tail it leaves unwritten is not compared), two
+    launches equal."""
+    ids = _index_case(mode, case).to(cuda)
+    offsets, slots = sg.slot_index(ids, N + 1)
+    again = sg.slot_index(ids, N + 1)
+    want_offsets, want = sg.slot_index_emulation(ids, N + 1)
+    total = int(want_offsets[-1])
+    assert torch.equal(offsets, want_offsets) and torch.equal(again[0], want_offsets)
+    assert torch.equal(slots[:total], want[:total]) and torch.equal(again[1][:total], want[:total])
+    counts, placed = _real_lists(offsets.cpu(), slots.cpu(), ids.cpu())
+    want_counts, want_placed = _real_lists(*sg.inverse_index(ids.cpu(), N + 1), ids.cpu())
+    assert torch.equal(counts, want_counts) and torch.equal(placed, want_placed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots_per_view", [1_572_864, 16_800_000], ids=["quality", "past_2e31"])
+def test_kernel_at_the_quality_run_size_on_the_card(cuda, slots_per_view):
+    """Per-view ids over the quality run's 131,072-slot store and 8 views:
+    its streams (12 x 131,072 slots a view) and streams long enough that the
+    gradient passes 2^31 elements (the kernel's 64-bit element offsets), a
+    30% pad tail; G1 equal to its emulation and launch to launch, within the
+    backward tolerance of index_add_."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    views, rows = 8, 131_073
+    ids = torch.randint(0, rows - 1, (views, slots_per_view), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    ids[:, int(0.7 * slots_per_view):] = rows - 1
+    cot = torch.randn((views, slots_per_view, 16), generator=gen, device=cuda)
+    assert cot.numel() > 2**31 or slots_per_view == 1_572_864
+    got = sg._backward_cuda(cot, ids, rows)
+    assert torch.equal(got, sg._backward_cuda(cot, ids, rows))
+    assert torch.equal(got, sg.stream_gather_backward_emulation(cot, ids, rows))
+    want = sg.stream_gather_backward_reference(cot, ids, rows)
+    torch.testing.assert_close(got, want, atol=BWD_ATOL_REL * float(want.abs().max()),
+                               rtol=BWD_RTOL)
