@@ -23,10 +23,12 @@ mesh needs a launched world, one rank per card:
 
     torchrun --nproc_per_node=N -m casualhdrsplat_torch.bench --sharded D,G
 
-On the card the step (`build`'s) replays as one captured CUDA graph, the
-counterpart of the reference's `@jax.jit step` (utils/cuda_graphs.py: the
-first call is an eager warm-up, the second captures); `step.eager` is the
-same step without a graph, the yardstick.  `--sharded` runs eagerly.
+On the card the step replays as one captured CUDA graph, the counterpart
+of the reference's `@jax.jit step` (utils/cuda_graphs.py: the first call
+is an eager warm-up, the second captures); `step.eager` is the same step
+without a graph, the yardstick.  `--sharded` replays its step too, with
+its collectives, when every process group of the mesh is NCCL; on gloo
+(the CPU) it runs eagerly.
 
 `--profile` then runs one more window under torch.profiler and prints,
 before the JSON line, its host wall and the card's busy time per step:
@@ -116,10 +118,11 @@ def build(n_gaussians=100_000, size=800, n_virtual=4, chunk=128, stream_factor=6
     return _graphed(step, "bench's step"), args, size * size * n_virtual
 
 
-def _graphed(step, name):
+def _graphed(step, name, mesh=None):
     """`step` replayed as a CUDA graph on CUDA tensors (captured over the
     arguments of its second call; other arguments capture again), the
-    eager `step` elsewhere; `.eager` is the eager step."""
+    eager `step` elsewhere (and on a mesh that is not all NCCL); `.eager`
+    is the eager step."""
     from casualhdrsplat_torch.utils import cuda_graphs
 
     graphs = cuda_graphs.GraphCache()
@@ -133,10 +136,12 @@ def _graphed(step, name):
 
     def graphed_step(*args):
         leaves = flat(args)
-        if not leaves or not cuda_graphs.graphable(leaves[0].device):
+        if not leaves or not cuda_graphs.graphable(leaves[0].device, mesh):
             return step(*args)
+        # on a mesh NCCL's watchdog queries its events while this captures
         return graphs.get(None, leaves, lambda: cuda_graphs.GraphedCall(
-            lambda: step(*args), name))()
+            lambda: step(*args), name,
+            capture_error_mode="global" if mesh is None else "thread_local"))()
 
     graphed_step.eager = step
     return graphed_step
@@ -147,7 +152,9 @@ def build_sharded(n_gaussians=100_000, size=800, n_virtual=4, mesh=None, device=
     sharded rasterizer on `mesh` (parallel.mesh.Mesh over the initialized
     world): `step(store)` returns the loss of the blurred frame's clipped
     HDR mean and its gradients with respect to this rank's block of the
-    store (its floating leaves); `args` holds that block."""
+    store (its floating leaves); `args` holds that block.  On a mesh whose
+    groups are all NCCL `step` replays a CUDA graph as `build`'s does, and
+    `step.eager` is the eager step."""
     from casualhdrsplat_torch.config import RasterizeConfig
     from casualhdrsplat_torch.data import synthetic
     from casualhdrsplat_torch.geometry import spline
@@ -186,7 +193,7 @@ def build_sharded(n_gaussians=100_000, size=800, n_virtual=4, mesh=None, device=
         grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
         return loss.detach(), dict(zip(keys, grads))
 
-    return step, (block,), size * size * n_virtual
+    return _graphed(step, "bench's sharded step", mesh), (block,), size * size * n_virtual
 
 
 def _sharded_setup(arg: str, device: torch.device, tmp: str):

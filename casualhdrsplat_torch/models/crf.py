@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from casualhdrsplat_torch.config import CRFConfig
 from casualhdrsplat_torch.ops import crf_fused
+from casualhdrsplat_torch.utils import cuda_graphs
 
 Params = Dict[str, torch.Tensor]
 
@@ -40,7 +41,8 @@ def create(
     """Initialize the monotone mixture near a plausible camera curve.
 
     cfg.init_gamma > 0: pre-fit the mixture to that gamma curve with a
-    short Adam loop (deterministic given `generator`).  0: an s-curve
+    short Adam descent (deterministic given `generator`; on a CUDA device
+    replays of one captured step).  0: an s-curve
     approximating clip(E, 0, 1).  The unit-weight jitter is drawn from
     `generator` (a CPU generator; a fixed seed when None), so it differs
     from the reference's jax.random draw.
@@ -69,23 +71,34 @@ def create(
     return params
 
 
-def _prefit_to_gamma(params: Params, cfg: CRFConfig, steps: int = 1200) -> Params:
+def _prefit_to_gamma(params: Params, cfg: CRFConfig, steps: int = 1200,
+                     graphed: bool = True) -> Params:
     """Fit the mixture to clip(E,0,1)^(1/init_gamma) on 256 log-spaced
-    samples with torch.optim.Adam(lr=1e-2) (the reference uses optax.adam
-    with the same defaults).  Returns new, detached tensors."""
+    samples with optax.adam(1e-2)'s arithmetic (the reference's jitted
+    fori_loop): one Adam descent on the parameters laid end to end
+    (utils/cuda_graphs.AdamDescent; Adam is elementwise, so that is
+    optax's update of each leaf).  With `graphed` on a CUDA device its
+    step replays as a CUDA graph; otherwise it runs eagerly.  Returns new,
+    detached tensors."""
     dev = params["unit_k"].device
+    keys = list(params)
+    sizes = [params[k].numel() for k in keys]
     with torch.inference_mode(False), torch.enable_grad():
-        p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
         e = torch.exp(torch.linspace(cfg.log_min, cfg.log_max, 256, device=dev))
         target = torch.clamp(e, 0.0, 1.0) ** (1.0 / cfg.init_gamma)
         e3 = e[:, None].repeat(1, 3)
-        opt = torch.optim.Adam(list(p.values()), lr=1e-2)
-        for _ in range(steps):
-            opt.zero_grad(set_to_none=True)
-            loss = torch.mean((apply(p, e3, cfg) - target[:, None]) ** 2)
-            loss.backward()
-            opt.step()
-    return {k: v.detach() for k, v in p.items()}
+
+        def unflat(x):
+            return {k: v.view(params[k].shape) for k, v in zip(keys, torch.split(x, sizes))}
+
+        def loss_fn(x):
+            return torch.mean((apply(unflat(x), e3, cfg) - target[:, None]) ** 2)
+
+        x0 = torch.cat([params[k].detach().reshape(-1) for k in keys])
+        descent = cuda_graphs.AdamDescent(loss_fn, x0, steps, 1e-2, "the CRF's gamma pre-fit",
+                                          graphed=graphed)
+        x, _ = descent(x0)
+    return {k: v.clone() for k, v in unflat(x).items()}
 
 
 def apply(params: Params, hdr_exposed: torch.Tensor, cfg: CRFConfig) -> torch.Tensor:

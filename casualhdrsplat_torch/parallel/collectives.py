@@ -29,7 +29,11 @@ host itself), which is how ranks that share one card run.
 Every call adds [calls, bytes, host seconds] to `mesh.stats[name]`: the
 bytes that land on this rank (the gathered output, or the reduced tensor),
 and the host time of the call (NCCL returns once the work is queued; gloo
-once it is done).
+once it is done).  A call made while a CUDA graph captures (the mesh step
+over NCCL, utils/cuda_graphs.py) runs nothing then: its calls and bytes
+are added on every replay of the graph instead, and the entry's host
+seconds become None, not measured, since a replay runs no Python around
+the collective.
 """
 
 from __future__ import annotations
@@ -40,13 +44,20 @@ import torch
 import torch.distributed as dist
 
 from casualhdrsplat_torch.parallel.mesh import WORLD_AXIS, Mesh
+from casualhdrsplat_torch.utils import cuda_graphs
 
 
-def _record(mesh: Mesh, name: str, nbytes: int, seconds: float) -> None:
+def _add(mesh: Mesh, name: str, nbytes: int, seconds) -> None:
     entry = mesh.stats.setdefault(name, [0, 0, 0.0])
     entry[0] += 1
     entry[1] += nbytes
-    entry[2] += seconds
+    entry[2] = None if seconds is None or entry[2] is None else entry[2] + seconds
+
+
+def _record(mesh: Mesh, name: str, nbytes: int, seconds: float) -> None:
+    # under capture: counted on each replay, host seconds not measured
+    if not cuda_graphs.on_replay(lambda: _add(mesh, name, nbytes, None)):
+        _add(mesh, name, nbytes, seconds)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, name: str) -> list:

@@ -44,7 +44,8 @@ class Mesh:
     """A (data, gauss) mesh over the initialized default process group.
 
     `stats` accumulates, per collective name, [calls, bytes, host seconds]
-    of the collectives run on this mesh (parallel/collectives.py); a caller
+    of the collectives run on this mesh (parallel/collectives.py; the
+    seconds None once a replayed graph ran one: not measured); a caller
     may clear it."""
 
     def __init__(self, data: int, gauss: int):
@@ -54,7 +55,7 @@ class Mesh:
         self.shape: Dict[str, int] = {DATA_AXIS: data, GAUSS_AXIS: gauss}
         self.rank = dist.get_rank()
         self.data_index, self.gauss_index = divmod(self.rank, gauss)
-        self.stats: Dict[str, List[float]] = {}
+        self.stats: Dict[str, List] = {}
         groups = {}
         for d in range(data):  # the rows: one gauss group each
             ranks = [d * gauss + g for g in range(gauss)]
@@ -79,6 +80,10 @@ class Mesh:
 
     def group(self, axis: str):
         return self._groups[axis]
+
+    def backends(self) -> set:
+        """The backends of the mesh's process groups ("nccl", "gloo")."""
+        return {dist.get_backend(g) for g in self._groups.values()}
 
 
 def make_mesh(cfg: Optional[ParallelConfig] = None) -> Mesh:

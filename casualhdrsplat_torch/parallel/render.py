@@ -102,7 +102,7 @@ def _packed_local_tiles(payload, aux, mesh: Mesh, cfg: RasterizeConfig, width, h
     # t is one of this rank's tiles, and nothing elsewhere
     starts = torch.stack(starts) + (torch.arange(v_local, device=dev) * s_budget)[:, None]
     mine = torch.zeros(num_tiles, dtype=torch.bool, device=dev)
-    mine[lo_t:hi_t] = True
+    mine[lo_t:hi_t].fill_(True)  # a fill on the device: no copy of a Python bool
     lo = torch.where(mine, starts[:, :-1], 0).to(_I32).reshape(-1)
     hi = torch.where(mine, starts[:, 1:], 0).to(_I32).reshape(-1)
     statics = rast._statics(v_local, width, height, cfg)

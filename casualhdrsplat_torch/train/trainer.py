@@ -23,20 +23,24 @@ and the replicated leaves alike, density control runs on each block
 rank draws the same frames and reads its scalars in the same order, so the
 collectives meet.
 
-On one CUDA device (no mesh) the step (loss, backward, Adam, the ADC
-statistics and the scalar stack) replays as one captured CUDA graph, the
-counterpart of the reference's jitted `_train_step` (utils/cuda_graphs.py):
-one graph per static key (the SH degree and the configs it bakes in), its
+On a CUDA device the step (loss, backward, Adam, the ADC statistics and
+the scalar stack) replays as one captured CUDA graph, the counterpart of
+the reference's jitted `_train_step` (utils/cuda_graphs.py): one graph per
+static key (the SH degree, the configs it bakes in, the mesh), its
 numbers that change from step to step (the frame, the coarse-to-fine
 sigma, the update count) read from device buffers filled before each
-replay.  The first step of a key runs eagerly (the warm-up), the second
-captures.  Density control, the opacity reset and the rebalance run
-eagerly between replays, as the reference runs them as programs of their
-own, and write the store, its moments and statistics in place, so the
-graph keeps reading the tensors it was captured with; anything that
-rebinds them (`load`, a caller's assignment) makes the next step capture
-again.  `run_step_eager` is the same step without a graph: the yardstick,
-and the path on the CPU and on a mesh.
+replay.  On a mesh only when every process group is NCCL (its collectives
+are captured with the step; a replay adds their calls and bytes to
+`mesh.stats`): gloo cannot be captured, so the CPU worlds and ranks that
+share one card step eagerly (`cuda_graphs.graphable`).  The first step of
+a key runs eagerly (the warm-up), the second captures.  Density control,
+the opacity reset and the rebalance run eagerly between replays, as the
+reference runs them as programs of their own, and write the store, its
+moments and statistics in place, so the graph keeps reading the tensors
+it was captured with; anything that rebinds them (`load`, a caller's
+assignment) makes the next step capture again.  `run_step_eager` is the
+same step without a graph: the yardstick, and the path on the CPU and on
+a gloo mesh.
 
 `save` writes the reference's checkpoint payload plus what a continuation
 needs to match an uninterrupted run bit for bit, which the reference
@@ -415,8 +419,9 @@ class Trainer:
         return True
 
     def run_step(self) -> Dict[str, float]:
-        """One training step: on one CUDA device a replay of the captured
-        step, elsewhere the eager step."""
+        """One training step: on a CUDA device (on a mesh, one whose groups
+        are all NCCL) a replay of the captured step, elsewhere the eager
+        step."""
         with self.lock:
             return self._run_step(graphed=True)
 
@@ -440,11 +445,15 @@ class Trainer:
 
     def _graphed_step(self, sh_degree: int) -> torch.Tensor:
         """The step's scalars from a replay of its graph for this key
-        (captured on the key's second step, after an eager warm-up)."""
-        key = (sh_degree, repr(self.cfg.model), repr(self.cfg.loss), id(self.opt))
+        (captured on the key's second step, after an eager warm-up).  On a
+        mesh the capture lets other threads use the card: NCCL's watchdog
+        queries its events meanwhile."""
+        key = (sh_degree, repr(self.cfg.model), repr(self.cfg.loss), id(self.opt),
+               id(self.mesh))
         call = self._step_graphs.get(key, self._step_tensors(), lambda: cuda_graphs.GraphedCall(
             lambda: self._train_step(self._frame_buf, self._sigma_buf, sh_degree),
-            f"the training step (SH degree {sh_degree})"))
+            f"the training step (SH degree {sh_degree})",
+            capture_error_mode="global" if self.mesh is None else "thread_local"))
         return call()
 
     def _run_step(self, graphed: bool) -> Dict[str, float]:
@@ -452,17 +461,12 @@ class Trainer:
         sigma = self._c2f_sigma()
         deg = self.active_sh_degree()
         self.opt.count_buffer(self.device).fill_(self.opt_state["count"])
-        if self.mesh is not None:  # eager, the frame and sigma as numbers
-            if self.cfg.loss.coarse_to_fine_steps > 0:
-                sigma = torch.tensor(sigma, device=self.device)
-            scalars = self._train_step(frame, sigma, deg)
+        self._frame_buf.fill_(frame)
+        self._sigma_buf.fill_(sigma)
+        if graphed and cuda_graphs.graphable(self.device, self.mesh):
+            scalars = self._graphed_step(deg)
         else:
-            self._frame_buf.fill_(frame)
-            self._sigma_buf.fill_(sigma)
-            if graphed and cuda_graphs.graphable(self.device):
-                scalars = self._graphed_step(deg)
-            else:
-                scalars = self._train_step(self._frame_buf, self._sigma_buf, deg)
+            scalars = self._train_step(self._frame_buf, self._sigma_buf, deg)
         self.opt_state["count"] += 1
         self.step += 1
         d = self.cfg.densify

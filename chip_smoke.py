@@ -11,7 +11,10 @@
    and prints ptxas's register and spill lines;
    then T1's instruction mix per element from its SASS (cuobjdump) and the
    least time its MUFU pipes and issue slots need for a frame, and T1 at
-   64 units against its plain versions.
+   64 units against its plain versions.  Then crf.create at full width:
+   its 1,200-step gamma pre-fit replayed as a CUDA graph against the same
+   pre-fit run eagerly from the same start (seconds of both, the fitted
+   parameters held together, T1 once each way a step).
 3. Packed serving at the full width of the ladder4-full model
    (ModelConfig() defaults: 131,072 Gaussians, SH degree 3, 8 virtual
    views, MLP CRF with 32 units, 16x128 tiles, chunk 128, shared binning)
@@ -56,18 +59,25 @@
    opacity.
 7. The sharded path (parallel/) on the same video, ladder4 with per-view
    binning: (a) a world of one (nccl, mesh (1, 1)) in this process, one
-   step's gradients and then a warm-up and 5 steps against the one-device
-   trainer from the same state (loss, PSNR, every group's gradient), B1
-   and B2 once a step, the step wall against the one-device per-view
-   step's; (b) two gloo ranks sharing cuda:0 on the meshes (1, 2) and
-   (2, 1), from 98,304 of the cloud's points: one render_frame and one
-   step's gradients, packed and dense, against the one-device port on the
-   card, a step, and on the packed trainer a densify round and a rebalance
-   (counts kept, spread not wider); the ranks report their launches and
-   each collective's bytes and host time per step; (c) `bench --sharded
-   1,1` (its JSON line, B1, B2 and G1 once a step) and
-   dryrun_multichip(2) on two gloo ranks.  B1, B2 and G1 once a step on
-   the packed branch; rank 1 holds B1-B4 and G1 to their plain versions.
+   step's gradients against the one-device trainer from the same state,
+   then a warm-up and 5 steps of each, alternating: the one-device
+   per-view trainer replays its graph, the mesh trainer its captured step
+   (collectives included), each of its steps run again eagerly from the
+   same state and held to the graphed one as in 5, the collectives' calls
+   and bytes of a graphed step equal to an eager step's (host seconds not
+   measured under a replay), B1, B2, G1 and its index once a step,
+   replays included; the graphed, eager and one-device walls and an
+   eager-and-graphed window; (b) two gloo ranks sharing cuda:0 on the
+   meshes (1, 2) and (2, 1), from 98,304 of the cloud's points: one
+   render_frame and one step's gradients, packed and dense, against the
+   one-device port on the card, a step (eager: gloo cannot be captured),
+   and on the packed trainer a densify round and a rebalance (counts
+   kept, spread not wider); the ranks report their launches and each
+   collective's bytes and host time per step; (c) `bench --sharded 1,1`
+   (its JSON line, graphed; B1, B2 and G1 once a step), its eager step by
+   bench's own loop and window, and dryrun_multichip(2) on two gloo ranks.
+   B1, B2 and G1 once a step on the packed branch; rank 1 holds B1-B4 and
+   G1 to their plain versions.
 8. The command line on the same video written as a COLMAP capture (text
    model, 8-bit PNG frames), in this process: `train --preset ladder4` for
    6 steps with checkpoints at 3 and 6 and an eval at 6; steps 4-6 again
@@ -75,10 +85,13 @@
    (RESUME_*); `train --resume` to step 8; `eval`; `render` in all six
    modes; `export`, read back equal to the checkpoint.  Then the viewer
    (10 /render.jpg requests) and both pose aligners (48 steps each, a
-   known offset injected) on the trained scene.  B1 and B2 launch counts
-   are checked for every command (G1 once per B2), and B1, B2 and G1 are
-   held against their plain versions on one aligner step's inputs
-   (render_pose's backward, the per-view branch).
+   known offset injected) on the trained scene, each graphed twice (the
+   descent step captured once, then replays) and eagerly on the same
+   inputs: ms a step each way, captures and replays, the loss curves,
+   corrections and outputs held together.  B1 and B2 launch counts are
+   checked for every command and aligner run (G1 once per B2), and B1, B2
+   and G1 are held against their plain versions on one aligner step's
+   inputs (render_pose's backward, the per-view branch).
 9. Holds every kernel against its plain PyTorch version on the inputs the
    paths gave it (pixels at a threshold tie exempt, forward and backward;
    each backward run twice: equal bits, but for the dense list form, whose
@@ -139,6 +152,7 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -664,6 +678,66 @@ def crf_hidden64_check(device):
     go = torch.randn(x.shape, device=device, generator=gen)
     measure_crf_forward("hidden_64", (x, *p, -10.0, 14.0), reps=5)
     measure_crf_backward("hidden_64", (x, go, *p, -10.0, 14.0), reps=5)
+
+
+def twins_close(what, graphed, eager):
+    """Hold a graphed descent's results to its eager twin's on the same
+    inputs: equal to the bit (B1, B2, G1 and T1 are deterministic), else
+    within 1e-4 x the largest + rtol 1e-3 (the card's step tolerance), with
+    the largest difference logged.  Returns whether all were equal."""
+    import torch
+
+    equal = True
+    for i, (a, b) in enumerate(zip(graphed, eager)):
+        if torch.equal(a, b):
+            continue
+        equal = False
+        scale = float(b.abs().max())
+        diff = (a - b).abs()
+        log(f"  {what}, output {i}: graphed differs from eager by {float(diff.max()):.3g} "
+            f"(largest {scale:.3g})")
+        if bool((diff > 1e-4 * scale + 1e-3 * b.abs()).any()):
+            raise AssertionError(f"{what}: graphed against eager, output {i}, max abs diff "
+                                 f"{float(diff.max())} of a largest {scale}")
+    return equal
+
+
+def crf_prefit_phase(device):
+    """crf.create at full width (32 units a channel, gamma 2.2): its gamma
+    pre-fit, 1,200 Adam steps replayed as a CUDA graph, against the same
+    pre-fit run eagerly from the same start (the same generator draws);
+    T1 once each way a step, replays included.  Returns the seconds of the
+    graphed create and of the eager pre-fit."""
+    import torch
+
+    from casualhdrsplat_torch import config
+    from casualhdrsplat_torch.models import crf
+    from casualhdrsplat_torch.ops import crf_fused
+
+    cfg = config.CRFConfig()
+    kernels = (crf_fused.FWD_KERNEL, crf_fused.BWD_KERNEL)
+    before = [k.launches for k in kernels]
+    created, t_graphed = timed(lambda: crf.create(cfg, torch.Generator().manual_seed(SEED),
+                                                  device=device))
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    _, t_again = timed(lambda: crf.create(cfg, torch.Generator().manual_seed(SEED),
+                                          device=device))
+    start = crf.create(dataclasses.replace(cfg, init_gamma=0.0),
+                       torch.Generator().manual_seed(SEED), device=device)
+    eager, t_eager = timed(lambda: crf._prefit_to_gamma(start, cfg, graphed=False))
+    equal = twins_close("crf.create's pre-fit", [created[k] for k in start],
+                        [eager[k] for k in start])
+    log(f"crf.create (32 units, 1200 pre-fit steps): graphed {t_graphed:.3f} s the first "
+        f"time in this process (warm-up, capture, replays, and torch's one-time set-up of "
+        f"graphs), {t_again:.3f} s again; the eager pre-fit {t_eager:.3f} s; "
+        f"fitted parameters {'equal to the bit' if equal else 'within tolerance'}; T1 "
+        f"launches forward {launched[0]}, backward {launched[1]}")
+    if launched != [1200, 1200]:
+        raise AssertionError(f"crf.create: T1 once each way per pre-fit step, got {launched}")
+    _, curve = crf.response_curve(created, cfg)
+    if not bool(torch.isfinite(curve).all()) or not bool((curve[1:] >= curve[:-1] - 1e-6).all()):
+        raise AssertionError("crf.create: the fitted response is not finite and monotone")
+    return t_graphed, t_eager
 
 
 def _stream_meta(stream, lo, hi, statics):
@@ -1294,14 +1368,17 @@ def graph_vs_eager_steps(trainer, steps, kernels, label, after_step=None):
     add in an order that changes from run to run, and the run-to-run log
     of the packed step (`run_to_run`) shows what else does.  Each of
     `kernels` must launch once a step on either path.  A round's threshold is put where both grant the
-    same slots (`round_threshold`).  Returns {"graphed": walls, "eager":
-    walls} in seconds, and "replay": whether each graphed step replayed
-    (the warm-up and the capture did not)."""
-    walls = {"graphed": [], "eager": [], "replay": []}
+    same slots (`round_threshold`).  On a mesh, each run's collectives
+    (`mesh.stats`, cleared before it) must be the same calls and bytes.
+    Returns {"graphed": walls, "eager": walls} in seconds, "replay":
+    whether each graphed step replayed (the warm-up and the capture did
+    not) and on a mesh "collectives": each step's {kind: mesh.stats}."""
+    walls = {"graphed": [], "eager": [], "replay": [], "collectives": []}
+    mesh = trainer.mesh
     for _ in range(steps):
         thr = round_threshold(trainer)
         start = trainer_state(trainer)
-        outs, launched, results = {}, {}, {}
+        outs, launched, results, stats = {}, {}, {}, {}
         call = trainer._step_graphs.call
         seen = (call.captures, call.replays) if call is not None else None
         for kind in ("graphed", "eager"):
@@ -1309,7 +1386,11 @@ def graph_vs_eager_steps(trainer, steps, kernels, label, after_step=None):
                 set_trainer_state(trainer, start)
             before = [k.launches for k in kernels]
             run = trainer.run_step if kind == "graphed" else trainer.run_step_eager
+            if mesh is not None:
+                mesh.stats.clear()
             outs[kind], dt = timed(run)
+            if mesh is not None:
+                stats[kind] = {k: list(v) for k, v in mesh.stats.items()}
             walls[kind].append(dt)
             if kind == "graphed":  # a replay, neither the warm-up nor the capture
                 walls["replay"].append(trainer._step_graphs.call is call and seen is not None
@@ -1333,6 +1414,12 @@ def graph_vs_eager_steps(trainer, steps, kernels, label, after_step=None):
                                      results["eager"])
         if any(n != [1] * len(kernels) for n in launched.values()):
             raise AssertionError(f"{label}: launches a step {launched}, each kernel once")
+        if mesh is not None:
+            calls = {kind: {k: v[:2] for k, v in st.items()} for kind, st in stats.items()}
+            if not calls["eager"] or calls["graphed"] != calls["eager"]:
+                raise AssertionError(f"{label}: collectives' [calls, bytes] graphed "
+                                     f"{calls['graphed']}, eager {calls['eager']}")
+            walls["collectives"].append(stats)
         log(f"  graphed against eager from the same state: scalars agree; every group's "
             f"gradient (from its first moment) within tolerance, worst max abs err "
             f"{worst['gradient']:.3g} of the group's largest; parameters within one Adam "
@@ -2036,9 +2123,13 @@ def aligner_phase(trainer, count, rp):
     """make_aligner on frame 1's deblurred view with a known 0.5 degree /
     1 cm offset, make_window_realigner on frame 1 and on the last frame
     (whose window repeats the last knot) against their clean renders with
-    that offset put into the window's knots, 48 steps each; then B1, B2
-    and G1 against their plain versions on one aligner step's inputs (the
-    per-view packed branch's backward).  Returns G1's measurement."""
+    that offset put into the window's knots, 48 steps each: each graphed
+    (a CUDA graph of one descent step: the first call warms up, captures
+    and replays, a second call only replays) and eagerly (`.eager`, the
+    loop of autograd steps) on the same inputs, the results held together
+    (`twins_close`); then B1, B2 and G1 against their plain versions on
+    one aligner step's inputs (the per-view packed branch's backward).
+    Returns G1's measurement."""
     import torch
 
     from casualhdrsplat_torch.geometry import lie
@@ -2054,11 +2145,8 @@ def aligner_phase(trainer, count, rp):
         vm = imf.poses_at(p, scene, (scene.timestamps[1] + 0.5 * dt).reshape(1), m)[0]
         target, _, _ = imf.render_pose(p, scene, vm, m, exposure=dt)
         vm_off = lie.mat_mul(lie.se3_exp(xi), vm)
-    align = pose_align.make_aligner(m, steps=ALIGN_STEPS)
-    ((_, _, curve), (b1, b2)), t = timed(
-        lambda: count(lambda: align(p, scene, vm_off, dt, target)))
-    log_alignment("make_aligner, frame 1", curve, t, b1, b2, ALIGN_STEPS + 1)
-    realign = pose_align.make_window_realigner(m, steps=ALIGN_STEPS)
+    graphed_and_eager("make_aligner, frame 1", functools.partial(pose_align.make_aligner, m),
+                      (p, scene, vm_off, dt, target), count, ALIGN_STEPS + 1)
     for frame in (1, trainer.dataset.num_frames - 1):
         with torch.no_grad():
             clean = imf.render_frame(p, scene, frame, m).blurred_ldr
@@ -2070,17 +2158,64 @@ def aligner_phase(trainer, count, rp):
             kd = p["knot_deltas"]
             broken = dict(p, knot_deltas=kd.index_put(
                 (knots,), lie.se3_log(lie.mat_mul(lie.se3_exp(xi), lie.se3_exp(kd[knots])))))
-        ((_, _, curve), (b1, b2)), t = timed(
-            lambda: count(lambda: realign(broken, scene, frame, clean)))
-        log_alignment(f"make_window_realigner, frame {frame} (knots {idx.tolist()})", curve, t,
-                      b1, b2, ALIGN_STEPS)
+        graphed_and_eager(f"make_window_realigner, frame {frame} (knots {idx.tolist()})",
+                          functools.partial(pose_align.make_window_realigner, m),
+                          (broken, scene, frame, clean), count, ALIGN_STEPS)
     # kernels B1, B2 and G1 on the inputs one aligner step gives them
     (bwd_call,), (g1_call,) = capture_backwards(lambda: pose_align.make_aligner(
-        m, steps=1)(p, scene, vm_off, dt, target))
+        m, steps=1).eager(p, scene, vm_off, dt, target))
     measure_backward("aligner_step", bwd_call, reps=20)
     with torch.no_grad():
         measure_compositor("aligner_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=20)
     return measure_g1("aligner_step", g1_call, reps=20)
+
+
+# ms a step of each aligner run, graphed (replays only) and eager
+ALIGNER_MS = {}
+# the steps of the descents profiled for the card's busy time a step (the
+# trace of a 48-step descent takes minutes to read)
+PROFILED_STEPS = 4
+
+
+def graphed_and_eager(name, make, args, count, b1_expected):
+    """An aligner (`make(steps=...)`) of ALIGN_STEPS steps graphed twice
+    (warm-up, capture and replays, then replays only) and eagerly on the
+    same inputs: each lowers its loss and launches B1 and B2 once a step
+    (`log_alignment`); the second graphed call and the eager one give the
+    same results (`twins_close`); the graph was captured once and replayed
+    the rest of the steps.  Then the card's busy time a step, graphed and
+    eager, from a profiled descent of PROFILED_STEPS steps (graphed: all
+    replays)."""
+    fn = make(steps=ALIGN_STEPS)
+    runs = {}
+    for kind, run in (("graphed", fn), ("graphed again", fn), ("eager", fn.eager)):
+        (out, (b1, b2)), t = timed(lambda: count(lambda: run(*args)))
+        log_alignment(f"{name}, {kind}", out[2], t, b1, b2, b1_expected)
+        runs[kind] = (out, t)
+    call = fn.graphs.call.step
+    log(f"{name}: the descent step's graph captured {call.captures} time(s), replayed "
+        f"{call.replays} times over {2 * ALIGN_STEPS} graphed steps; a replay counts "
+        + ", ".join(f"{c.symbol} {n}" for c, n in call._rise))
+    if call.captures != 1 or call.replays != 2 * ALIGN_STEPS - 1:
+        raise AssertionError(f"{name}: one capture and {2 * ALIGN_STEPS - 1} replays expected")
+    equal = all(twins_close(f"{name}, graphed {i}", runs[k][0], runs["eager"][0])
+                for i, k in enumerate(("graphed", "graphed again")))
+    ms = {k: runs[k][1] / ALIGN_STEPS * 1e3 for k in runs}
+    short = make(steps=PROFILED_STEPS)
+    short(*args)  # its warm-up and capture
+    for kind, run in (("graphed", short), ("eager", short.eager)):
+        wall, busy = profile_window(f"{name}, {kind} descent of {PROFILED_STEPS} steps",
+                                    lambda: run(*args), reps=1)
+        ms[f"{kind} busy"] = busy / PROFILED_STEPS
+        ms[f"{kind} busy share"] = busy / wall
+    ALIGNER_MS[name] = ms
+    log(f"{name}: graphed {ms['graphed']:.2f} ms a step with its capture, "
+        f"{ms['graphed again']:.2f} replaying; eager {ms['eager']:.2f} "
+        f"({ms['eager'] / ms['graphed again']:.2f}x); card busy {ms['graphed busy']:.2f} ms a "
+        f"step graphed ({100 * ms['graphed busy share']:.1f}% of the profiled wall), "
+        f"{ms['eager busy']:.2f} eager ({100 * ms['eager busy share']:.1f}%); loss curves, "
+        f"corrections and outputs "
+        + ("equal to the bit" if equal else "within tolerance (logged above)"))
 
 
 def log_alignment(name, curve, seconds, b1, b2, b1_expected):
@@ -2329,24 +2464,32 @@ def flat_grads(trainer, grads, g2d, gather=None):
 
 
 def collective_lines(stats, steps: int = 1):
-    """One log line per collective: calls, MB and host ms per step."""
+    """One log line per collective: calls, MB and host ms per step (host
+    ms "not measured" once a replayed graph ran the collective)."""
     return [f"    {name}: {c / steps:.0f} calls, {b / steps / 1e6:.2f} MB, "
-            f"{t / steps * 1e3:.2f} ms host" for name, (c, b, t) in sorted(stats.items())]
+            + ("host ms not measured (replayed)" if t is None
+               else f"{t / steps * 1e3:.2f} ms host")
+            for name, (c, b, t) in sorted(stats.items())]
 
 
 def sharded_world_of_one(device, dataset, rp):
     """The sharded path on a world of one (nccl, mesh (1, 1)) against the
     one-device trainer on the per-view branch from the same state: one
-    step's gradients, then a warm-up and TRAIN_STEPS steps on each.
-    Returns (B1, B2, G1 launches of the sharded steps)."""
+    step's gradients; then a step of each (their graphs' warm-ups) and
+    TRAIN_STEPS steps in which the one-device trainer replays its graph and
+    the mesh trainer runs its captured step and its eager twin from the
+    same state (`graph_vs_eager_steps`: scalars and every tensor of the
+    step held together, B1, B2, G1 and its index once a step either way,
+    the collectives' calls and bytes of a graphed step equal to an eager
+    step's).  Returns (B1, B2, G1 launches of the mesh's steps)."""
     import torch
     import torch.distributed as dist
 
     from casualhdrsplat_torch.ops import stream_gather as sg
-
     from casualhdrsplat_torch.parallel.distributed import backend_for
     from casualhdrsplat_torch.parallel.mesh import Mesh
     from casualhdrsplat_torch.train.trainer import Trainer
+    from casualhdrsplat_torch.utils import cuda_graphs
 
     cfg = sharded_cfg("packed")
     with tempfile.TemporaryDirectory(prefix="chs-world-") as tmp:
@@ -2369,45 +2512,64 @@ def sharded_world_of_one(device, dataset, rp):
                 f"one-device per-view {float(loss_a):.6f}; {len(a)} gradient groups agree, "
                 f"worst max abs err {worst:.3g} of the group's largest")
             del grads_a, grads_b, a, b
-            # the one-device per-view yardstick runs eagerly, as the mesh does
-            one.run_step_eager(), sharded.run_step()  # warm-up
-            walls = {"one-device": [], "mesh (1, 1)": []}
-            outs = {k: [] for k in walls}
-            mesh.stats.clear()
+            graphable = cuda_graphs.graphable(device, mesh)
+            log(f"mesh (1, 1): backends {sorted(mesh.backends())}, run_step "
+                f"{'replays a CUDA graph' if graphable else 'eager'}")
+            if not graphable:
+                raise AssertionError("a world of one over nccl on the card must be graphable")
+            one.run_step(), sharded.run_step()  # the graphs' warm-ups
             kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX)
-            launches = (0, 0, 0, 0)
+            for k in kernels:
+                k.launches = 0
+            walls = {"one-device": [], "graphed": [], "eager": [], "replay": [],
+                     "collectives": []}
+            outs = {"one-device": [], "mesh (1, 1)": []}
             # the two trainers' steps alternate, so that a drift of the
             # host's or the card's speed reaches both alike
             for _ in range(TRAIN_STEPS):
-                for name, t in (("one-device", one), ("mesh (1, 1)", sharded)):
-                    before = [k.launches for k in kernels]
-                    out, dt = timed(t.run_step_eager)
-                    walls[name].append(dt)
-                    outs[name].append(out)
-                    if t is sharded:
-                        launches = tuple(n + k.launches - b
-                                         for n, k, b in zip(launches, kernels, before))
-            for step, (x, y) in enumerate(zip(outs["one-device"], outs["mesh (1, 1)"]), 2):
+                out, dt = timed(one.run_step)
+                walls["one-device"].append(dt)
+                outs["one-device"].append(out)
+                w = graph_vs_eager_steps(sharded, 1, kernels, "mesh (1, 1)",
+                                         after_step=outs["mesh (1, 1)"].append)
+                for key in w:
+                    walls[key] += w[key]
+            # each step: the one-device trainer's, the mesh's graphed and eager
+            launches = tuple(k.launches for k in kernels)
+            if launches != (3 * TRAIN_STEPS,) * 4:
+                raise AssertionError(f"mesh (1, 1) phase: B1, B2, G1 and its index {launches}, "
+                                     f"3 a step expected")
+            for step, (x, y) in enumerate(zip(outs["one-device"], outs["mesh (1, 1)"]), 3):
                 if not (np.isfinite(y["loss"]) and abs(x["loss"] - y["loss"])
                         <= 1e-4 * abs(x["loss"]) and abs(x["psnr"] - y["psnr"]) <= 1e-3):
                     raise AssertionError(f"mesh (1, 1) step {step}: {y} against {x}")
-            one_ms, mesh_ms = (np.median(walls[k]) * 1e3 for k in walls)
-            log(f"sharded steps, mesh (1, 1): median {mesh_ms:.2f} ms against the one-device "
-                f"per-view step's {one_ms:.2f} ms ({mesh_ms / one_ms:.3f}x); losses "
-                + ", ".join(f"{o['loss']:.6f}" for o in outs["mesh (1, 1)"])
-                + f"; launches over {TRAIN_STEPS} steps: B1 {launches[0]}, B2 {launches[1]}, "
-                f"G1 {launches[2]}; "
-                f"walls in ms, alternating: " + json.dumps(
-                    {k: [round(w * 1e3, 2) for w in v] for k, v in walls.items()}))
-            for line in collective_lines(mesh.stats, TRAIN_STEPS):
-                log(line)
-            if launches != (TRAIN_STEPS,) * 4:
-                raise AssertionError("mesh (1, 1): B1, B2, G1 and its index once per step")
+            replays = [w for w, r in zip(walls["graphed"], walls["replay"]) if r]
+            call = sharded._step_graphs.call
+            if len(replays) < TRAIN_STEPS - 1 or call.captures != 1:
+                raise AssertionError(f"mesh (1, 1): {call.captures} captures, {len(replays)} "
+                                     f"replays in {TRAIN_STEPS} steps")
+            one_ms, graphed_ms, eager_ms = (float(np.median(v)) * 1e3 for v in (
+                walls["one-device"], replays, walls["eager"]))
+            log(f"sharded steps, mesh (1, 1): graphed median {graphed_ms:.2f} ms "
+                f"({len(replays)} replays of {TRAIN_STEPS} steps), its eager twin "
+                f"{eager_ms:.2f} ms ({eager_ms / graphed_ms:.2f}x), the one-device per-view "
+                f"step graphed {one_ms:.2f} ms ({graphed_ms / one_ms:.3f}x); the step's graph "
+                f"captured {call.captures} time(s), replayed {call.replays} times, a replay "
+                f"counts " + ", ".join(f"{c.symbol} {n}" for c, n in call._rise)
+                + "; losses " + ", ".join(f"{o['loss']:.6f}" for o in outs["mesh (1, 1)"])
+                + f"; launches over the {TRAIN_STEPS} steps of the three runs: B1 "
+                f"{launches[0]}, B2 {launches[1]}, G1 {launches[2]}, its index {launches[3]}; "
+                f"walls in ms: " + json.dumps({k: [round(x * 1e3, 2) for x in walls[k]]
+                                               for k in ("one-device", "graphed", "eager")}))
+            for kind in ("graphed", "eager"):
+                log(f"  collectives of the last step, {kind}:")
+                for line in collective_lines(walls["collectives"][-1][kind]):
+                    log(line)
+            if "--profile" in sys.argv[1:]:
+                profile_window("one-device per-view step", one.run_step)
+            eager_and_graphed("mesh (1, 1) step", sharded.run_step_eager, sharded.run_step)
             INDEX_LAUNCHES["mesh (1, 1)"] = launches[3]
             launches = launches[:3]
-            if "--profile" in sys.argv[1:]:
-                profile_window("one-device per-view step", one.run_step_eager)
-                profile_window("mesh (1, 1) step", sharded.run_step_eager)
             del one, sharded
         finally:
             dist.destroy_process_group()
@@ -2496,6 +2658,10 @@ def sharded_rank(rank, device, dataset, cfgs, refs):
             step = t.run_step()
             if not np.isfinite(step["loss"]):
                 raise AssertionError(f"mesh {shape} {branch}: step {step}")
+        # gloo runs its collectives on the host: run_step is eager here
+        if t._step_graphs.call is not None:
+            raise AssertionError(f"mesh {shape} over gloo: run_step captured a graph")
+        lines.append(f"mesh {shape}: backends {sorted(mesh.backends())}, run_step eager")
         report = t._densify(False)
         before = t._shard_counts()
         t._rebalance()
@@ -2600,15 +2766,21 @@ def sharded_world_of_two(device, dataset):
 
 
 def sharded_bench_and_dryrun(device):
-    """bench --sharded 1,1 (a world of one in this process) and
-    dryrun_multichip(2) on two gloo ranks sharing the card.  Returns the
-    launches of B1 and B2 (of both) and of G1 (of bench's)."""
+    """bench --sharded 1,1 (a world of one in this process; its step
+    replays a CUDA graph), then its eager step by bench's own loop and the
+    two in one eager-and-graphed window, and dryrun_multichip(2) on two
+    gloo ranks sharing the card (eager).  Returns the launches of B1 and B2
+    (of both) and of G1 (of bench's graphed run)."""
     import contextlib
     import io
+
+    import torch.distributed as dist
 
     from casualhdrsplat_torch import bench, entry
     from casualhdrsplat_torch.ops import rasterize_packed as rp
     from casualhdrsplat_torch.ops import stream_gather as sg
+    from casualhdrsplat_torch.parallel.distributed import backend_for
+    from casualhdrsplat_torch.parallel.mesh import Mesh
 
     kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX)
     for k in kernels:
@@ -2628,6 +2800,24 @@ def sharded_bench_and_dryrun(device):
         raise AssertionError(f"bench --sharded 1,1: exit {rc}, {result}, launches {launches}")
     INDEX_LAUNCHES["bench --sharded 1,1"] = launches[3]
     launches = launches[:3]
+    # its eager step (`step.eager`) on the same workload, by bench's own loop
+    with tempfile.TemporaryDirectory(prefix="chs-bench-") as tmp:
+        dist.init_process_group(backend_for(device), init_method=f"file://{tmp}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            step, args, pixels = bench.build_sharded(mesh=Mesh(1, 1), device=device)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                bench._run(step.eager, args, pixels, device, True)
+            eager = json.loads(text.getvalue().strip().splitlines()[-1])
+            log(f"bench --sharded 1,1: graphed {result['value']} Mpix/s (windows "
+                f"{result['windows']}, spread {result['spread_pct']}%), eager {eager['value']} "
+                f"Mpix/s (windows {eager['windows']}, spread {eager['spread_pct']}%)")
+            eager_and_graphed("bench --sharded 1,1 step", lambda: step.eager(*args),
+                              lambda: step(*args))
+            del step, args
+        finally:
+            dist.destroy_process_group()
     results, seconds = timed(lambda: entry.dryrun_multichip(2, device=device.type,
                                                             backend="gloo"))
     for r in results:
@@ -2699,6 +2889,7 @@ def main() -> int:
                 log(f"  ptxas {k.source_name}: {line.strip()}")
     t1_instruction_mix()
     crf_hidden64_check(device)
+    crf_prefit_phase(device)
 
     # -- the model and a warm-up request ------------------------------------
     (cfg, scene, params), t_setup = timed(lambda: build_model(device))
@@ -2875,6 +3066,7 @@ def main() -> int:
     log(f"T1 on the training step's inputs: forward {json.dumps(t1_step[0])}, backward "
         f"{json.dumps(t1_step[1])}")
     log("eager and graphed windows: " + json.dumps(WINDOWS))
+    log("pose aligners, ms a step: " + json.dumps(ALIGNER_MS))
     log(json.dumps({"kernels": kernels_line}))
     log(smi)  # as nvidia-smi gives them, on a line of its own
     print(json.dumps({"ok": True, "device": {

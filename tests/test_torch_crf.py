@@ -1,9 +1,11 @@
 """Port parity: models/crf.py against the JAX reference.
 
-`apply` on carried weights: atol 1e-6.  The gamma pre-fit: two Adam
-implementations (torch.optim.Adam vs optax.adam, same defaults) over 1200
-steps from the same start, compared as response curves at atol 1e-4
-(measured 7e-7 on the CPU); `create` with its own jitter draw at 1e-3."""
+`apply` on carried weights: atol 1e-6.  The gamma pre-fit: the port's
+Adam (optax.adam's float32 arithmetic, cuda_graphs.adam_update) and
+optax.adam over 1200 steps from the same start, compared as response
+curves at atol 1e-4 (measured 5.1e-7 on the CPU;
+tests/test_torch_graphed_descents.py holds it at 1e-6); `create` with its
+own jitter draw at 1e-3."""
 
 import dataclasses
 

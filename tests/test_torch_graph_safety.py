@@ -7,10 +7,18 @@ A CUDA graph cannot hold a device-to-host read (`.item()`, `bool()`,
 data-dependent shape: `aten.nonzero`, `aten._unique2`) nor a tensor made
 from Python data (`aten.lift_fresh`, on the card a copy from the host).
 `HostReads`, a TorchDispatchMode, counts those ops while the captured
-functions run on CPU tensors: the packed and dense `Trainer._train_step`,
-`render_pose` in its three modes, the blurred frame of `entry()`,
-bench's step, and the packed stream gather with its backward and the
-inverse index that kernel G1 reads on the card.  Each must count zero.
+functions run on CPU tensors: the packed and dense `Trainer._train_step`
+(also on a mesh (1, 1) over gloo: the collectives and the sharded
+render), `render_pose` in its three modes, the blurred frame of `entry()`,
+bench's step and its sharded step, the packed stream gather with its
+backward and the inverse index that kernel G1 reads on the card, and one
+step of each Adam descent the port captures (`cuda_graphs.AdamDescent`:
+`make_aligner`'s, `make_window_realigner`'s at a middle and at the last
+frame, whose window repeats a knot, and the CRF's gamma pre-fit), run
+through their graphed path with a stand-in for GraphedCall that calls the
+function it would capture.  Each must count zero.  A gloo mesh is not
+graphable (its collectives run on the host): the trainer and bench step
+it eagerly.
 The plain versions of the compositor kernels (B1-B4) are left out of the
 count: on the card the kernels run in their place.
 
@@ -41,10 +49,13 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import test_torch_graphed_descents as descents
+import torch_parallel_cases as cases
 from casualhdrsplat_torch import bench as t_bench
 from casualhdrsplat_torch import config as t_config
 from casualhdrsplat_torch import entry as t_entry
 from casualhdrsplat_torch.data import dataset as t_dataset
+from casualhdrsplat_torch.models import crf as t_crf
 from casualhdrsplat_torch.models import image_formation as imf
 from casualhdrsplat_torch.ops import binning
 from casualhdrsplat_torch.ops import composite
@@ -52,6 +63,7 @@ from casualhdrsplat_torch.ops import rasterize_packed as rp
 from casualhdrsplat_torch.ops import stream_gather
 from casualhdrsplat_torch.ops.composite import CompositeStatics
 from casualhdrsplat_torch.train import optim as t_optim
+from casualhdrsplat_torch.train import pose_align
 from casualhdrsplat_torch.train.trainer import Trainer
 from casualhdrsplat_torch.utils import cuda_graphs
 
@@ -199,6 +211,78 @@ def test_bench_step_makes_no_host_read(host_reads):
         loss, grads = step.eager(*args)
     assert host_reads.found == []
     assert np.isfinite(float(loss)) and grads[0].shape == args[0].shape
+
+
+@pytest.fixture(scope="module")
+def descent_trainer():
+    return descents.make_trainer()
+
+
+@pytest.mark.parametrize("kind", ["aligner", "realigner-middle", "realigner-end", "crf_prefit"])
+def test_descent_step_makes_no_host_read(host_reads, monkeypatch, descent_trainer, kind):
+    """One step of the descent, as the graphed path captures it."""
+    t, m = descent_trainer, descent_trainer.cfg.model
+    descents.use_stand_in(monkeypatch, mode=host_reads)
+    if kind == "aligner":
+        out = pose_align.make_aligner(m, steps=1)(t.params, t.scene,
+                                                  *descents.aligner_inputs(t, 1))
+    elif kind == "crf_prefit":
+        out = t_crf._prefit_to_gamma(t.params["crf"], m.crf, steps=1)
+    else:
+        frame = 1 if kind == "realigner-middle" else t.dataset.num_frames - 1
+        broken, _, target = descents.realigner_inputs(t, frame)
+        out = pose_align.make_window_realigner(m, steps=1)(broken, t.scene, frame, target)
+    assert len(descents.CallingStandIn.made) == 1
+    assert host_reads.found == []
+    if kind != "crf_prefit":
+        assert out[2].shape == (1,) and bool(torch.isfinite(out[2]).all())
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A gloo world of one in this process and its mesh (1, 1)."""
+    import torch.distributed as dist
+
+    from casualhdrsplat_torch.parallel.mesh import Mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0)
+    try:
+        yield Mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "dense"])
+def test_mesh_train_step_makes_no_host_read(host_reads, dataset, world_of_one, packed):
+    cfg = cases.trainer_cfg(1, 1)
+    cfg.model.rasterize = dataclasses.replace(cfg.model.rasterize, packed=packed)
+    cfg.loss.coarse_to_fine_steps = 20  # the blur's sigma comes from its buffer
+    t = Trainer(cfg, dataset, device="cpu", mesh=world_of_one)
+    # gloo runs its collectives on the host: this mesh steps eagerly, on any device
+    assert world_of_one.backends() == {"gloo"}
+    assert not cuda_graphs.graphable("cuda", world_of_one)
+    t._frame_buf.fill_(1)
+    t._sigma_buf.fill_(1.5)
+    t.opt.count_buffer(t.device).fill_(0)
+    before = t.params["gaussians"]["means"].clone()
+    with host_reads:
+        scalars = t._train_step(t._frame_buf, t._sigma_buf, t.active_sh_degree())
+    assert host_reads.found == []
+    assert scalars.shape == (4,) and bool(torch.isfinite(scalars).all())
+    assert not torch.equal(before, t.params["gaussians"]["means"])
+    assert world_of_one.stats and all(v[0] > 0 for v in world_of_one.stats.values())
+    out = t.run_step()  # eager: no graph on gloo
+    assert t._step_graphs.call is None and np.isfinite(out["loss"])
+
+
+def test_sharded_bench_step_makes_no_host_read(host_reads, world_of_one):
+    step, (block,), _ = t_bench.build_sharded(**cases.BENCH_TINY, mesh=world_of_one,
+                                              device="cpu")
+    with host_reads:
+        loss, grads = step.eager(block)
+    assert host_reads.found == []
+    assert np.isfinite(float(loss)) and grads["means"].shape == block["means"].shape
 
 
 @pytest.mark.parametrize("per_view", [False, True], ids=["shared", "per_view"])
