@@ -18,6 +18,7 @@ that needs no gradient calls them under `torch.no_grad()` or
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -27,9 +28,11 @@ from casualhdrsplat_torch.config import ModelConfig
 from casualhdrsplat_torch.geometry import lie, spline
 from casualhdrsplat_torch.models import crf as crf_mod
 from casualhdrsplat_torch.models import gaussians as gauss_mod
+from casualhdrsplat_torch.models import losses
 from casualhdrsplat_torch.ops import binning
 from casualhdrsplat_torch.ops import rasterize as rast_mod
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
+from casualhdrsplat_torch.parallel import sharding
 from casualhdrsplat_torch.utils import cuda_graphs
 
 Params = Dict[str, object]
@@ -277,22 +280,31 @@ def _tensors(tree):
 
 
 class GraphedRenders:
-    """`render_pose`, and the blurred frame of `render_frame`, for a server:
-    on a CUDA device each replays a CUDA graph under `torch.no_grad()`
-    (utils/cuda_graphs.py), one per static key (for `render_pose`:
-    hdr_output, depth_output, the SH degree and the config), captured on
-    the key's second call after an eager warm-up; on another device the
-    eager functions run.  The pose, exposure and frame are copied into
-    static device buffers before a replay, and the outputs are copied out
-    of the graph's before they return: the next replay overwrites them.  A
-    graph is captured again when the parameters or the scene are other
-    tensors than at its capture (a trainer's Adam writes them in place, its
-    density control too).  A caller that trains meanwhile holds the
-    trainer's lock around a call, as around the eager render."""
+    """`render_pose`, and the blurred frame of `render_frame`, for a server;
+    an evaluation's renders with their metric vectors (`frame_scores`,
+    `deblurred_scores`): on a CUDA device each replays a CUDA graph under
+    `torch.no_grad()` (utils/cuda_graphs.py), one per static key (for
+    `render_pose`: hdr_output, depth_output, the SH degree and the config),
+    captured on the key's second call after an eager warm-up; on another
+    device the eager functions run.  The pose, exposure and frame are
+    copied into static device buffers before a replay, and the outputs are
+    copied out of the graph's before they return: the next replay
+    overwrites them.  A graph is captured again when the parameters, the
+    scene or the target stacks are other tensors than at its capture (a
+    trainer's Adam writes them in place, its density control too).  A
+    call holds the object's lock from filling the buffers to copying the
+    outputs out, so that the calls of two threads (a server's request and
+    a trainer's evaluation) neither see each other's buffers nor capture
+    at once.  A caller that trains meanwhile holds the trainer's lock
+    around a call, as around the eager render.  With a (data, gauss) mesh the renders are
+    its collective ones (parallel/), graphed when every process group of
+    it is NCCL (`cuda_graphs.graphable`), their collectives inside the
+    graph."""
 
     def __init__(self):
         self._graphs = {}
         self._buffers = {}
+        self._lock = threading.Lock()
 
     def _buffer(self, name, like: torch.Tensor, dtype=torch.float32):
         key = (name, like.device)
@@ -302,9 +314,9 @@ class GraphedRenders:
                 self._buffers[key] = torch.zeros(shape, dtype=dtype, device=like.device)
         return self._buffers[key]
 
-    def _replay(self, key, name, params, scene, make):
+    def _replay(self, key, name, params, scene, make, extra=()):
         cache = self._graphs.setdefault(key[:-1], cuda_graphs.GraphCache())
-        inputs = _tensors(params) + _tensors(scene)
+        inputs = _tensors(params) + _tensors(scene) + list(extra)
         return cache.get(key, inputs, lambda: cuda_graphs.GraphedCall(
             make, name, capture_error_mode="thread_local"))()
 
@@ -317,20 +329,21 @@ class GraphedRenders:
             return render_pose(params, scene, viewmat, cfg, exposure=exposure,
                                hdr_output=hdr_output, depth_output=depth_output,
                                sh_degree=sh_degree)
-        vm = self._buffer("viewmat", viewmat)
-        dt = self._buffer("exposure", viewmat)
-        vm.copy_(viewmat)
-        if isinstance(exposure, torch.Tensor):
-            dt.copy_(exposure)
-        else:
-            dt.fill_(1.0 if exposure is None else exposure)
-        key = (hdr_output, depth_output, sh_degree, repr(cfg))
-        img, alpha, aux = self._replay(
-            key, f"render_pose (hdr {hdr_output}, depth {depth_output})", params, scene,
-            lambda: render_pose(params, scene, vm, cfg, exposure=dt, hdr_output=hdr_output,
-                                depth_output=depth_output, sh_degree=sh_degree))
-        return img.clone(), alpha.clone(), rast_mod.RasterizeAux(*(
-            t.clone() if isinstance(t, torch.Tensor) else t for t in aux))
+        with self._lock:
+            vm = self._buffer("viewmat", viewmat)
+            dt = self._buffer("exposure", viewmat)
+            vm.copy_(viewmat)
+            if isinstance(exposure, torch.Tensor):
+                dt.copy_(exposure)
+            else:
+                dt.fill_(1.0 if exposure is None else exposure)
+            key = (hdr_output, depth_output, sh_degree, repr(cfg))
+            img, alpha, aux = self._replay(
+                key, f"render_pose (hdr {hdr_output}, depth {depth_output})", params, scene,
+                lambda: render_pose(params, scene, vm, cfg, exposure=dt, hdr_output=hdr_output,
+                                    depth_output=depth_output, sh_degree=sh_degree))
+            return img.clone(), alpha.clone(), rast_mod.RasterizeAux(*(
+                t.clone() if isinstance(t, torch.Tensor) else t for t in aux))
 
     @torch.no_grad()
     def render_frame_blurred(self, params: Params, scene: SceneStatic, frame_id,
@@ -338,16 +351,65 @@ class GraphedRenders:
         """`render_frame(...).blurred_ldr`, a copy."""
         if not cuda_graphs.graphable(scene.timestamps.device):
             return render_frame(params, scene, frame_id, cfg, sh_degree=sh_degree).blurred_ldr
+        with self._lock:
+            fid = self._frame(frame_id, scene)
+            key = ("frame", sh_degree, repr(cfg))
+            return self._replay(
+                key, "render_frame", params, scene,
+                lambda: render_frame(params, scene, fid, cfg, sh_degree=sh_degree).blurred_ldr,
+            ).clone()
+
+    def _frame(self, frame_id, scene: SceneStatic) -> torch.Tensor:
+        """The frame buffer, holding `frame_id`."""
         fid = self._buffer("frame", scene.timestamps, torch.int64)
         if isinstance(frame_id, torch.Tensor):
             fid.copy_(frame_id)
         else:
             fid.fill_(frame_id)
-        key = ("frame", sh_degree, repr(cfg))
-        return self._replay(
-            key, "render_frame", params, scene,
-            lambda: render_frame(params, scene, fid, cfg, sh_degree=sh_degree).blurred_ldr,
-        ).clone()
+        return fid
+
+    @torch.no_grad()
+    def frame_scores(self, params: Params, scene: SceneStatic, frame_id, cfg: ModelConfig,
+                     targets: torch.Tensor, sh_degree: Optional[int] = None, mesh=None):
+        """`frame_scores(...)`: (image, metric vector), copies."""
+        if not cuda_graphs.graphable(scene.timestamps.device, mesh):
+            return frame_scores(params, scene, frame_id, cfg, targets, sh_degree, mesh)
+        with self._lock:
+            fid = self._frame(frame_id, scene)
+            key = ("scores", sh_degree, id(mesh), repr(cfg))
+            img, vec = self._replay(
+                key, "the blurred frame and its metric vector", params, scene,
+                lambda: frame_scores(params, scene, fid, cfg, targets, sh_degree, mesh),
+                extra=(targets,))
+            return img.clone(), vec.clone()
+
+    @torch.no_grad()
+    def deblurred_scores(self, params: Params, scene: SceneStatic, frame_id, cfg: ModelConfig,
+                         hdr_output: bool = False, sh_degree: Optional[int] = None,
+                         exposure=None, targets: Optional[torch.Tensor] = None,
+                         inputs: Optional[torch.Tensor] = None, mesh=None):
+        """`deblurred_scores(...)`: (image, metric vector or None), copies."""
+        if not cuda_graphs.graphable(scene.timestamps.device, mesh):
+            return deblurred_scores(params, scene, frame_id, cfg, hdr_output, sh_degree,
+                                    exposure, targets, inputs, mesh)
+        with self._lock:
+            fid = self._frame(frame_id, scene)
+            dt = None
+            if exposure is not None:
+                dt = self._buffer("exposure", scene.timestamps)
+                if isinstance(exposure, torch.Tensor):
+                    dt.copy_(exposure)
+                else:
+                    dt.fill_(exposure)
+            key = ("deblurred", hdr_output, dt is not None, targets is not None,
+                   inputs is not None, sh_degree, id(mesh), repr(cfg))
+            img, vec = self._replay(
+                key, f"render_deblurred (hdr {hdr_output}, exposure given {dt is not None}, "
+                f"scored {targets is not None})", params, scene,
+                lambda: deblurred_scores(params, scene, fid, cfg, hdr_output, sh_degree, dt,
+                                         targets, inputs, mesh),
+                extra=[t for t in (targets, inputs) if t is not None])
+            return img.clone(), None if vec is None else vec.clone()
 
 
 def render_deblurred(
@@ -368,11 +430,60 @@ def render_deblurred(
                        hdr_output=hdr_output, sh_degree=sh_degree)
 
 
+def frame_scores(params: Params, scene: SceneStatic, frame_id, cfg: ModelConfig,
+                 targets: torch.Tensor, sh_degree: Optional[int] = None, mesh=None):
+    """The blurred frame B_i of `render_frame` (on a (data, gauss) mesh, of
+    parallel/render.py's `render_frame_sharded`) and its metric vector
+    [psnr, ssim, ms_ssim] against `targets[frame_id]`, a [F, H, W, 3]
+    stack read on the device (`frame_entry`): (image, vector).  The
+    counterpart of the reference trainer's `_eval_render` followed by its
+    `_metric_vector`."""
+    if mesh is None:
+        img = render_frame(params, scene, frame_id, cfg, sh_degree=sh_degree).blurred_ldr
+    else:
+        from casualhdrsplat_torch.parallel import render as prender  # it imports this module
+
+        img = prender.render_frame_sharded(params, scene, frame_id, cfg, mesh,
+                                           sh_degree=sh_degree).blurred_ldr
+    return img, losses.metric_vector(img, frame_entry(targets, frame_id))
+
+
+def deblurred_scores(params: Params, scene: SceneStatic, frame_id, cfg: ModelConfig,
+                     hdr_output: bool = False, sh_degree: Optional[int] = None, exposure=None,
+                     targets: Optional[torch.Tensor] = None,
+                     inputs: Optional[torch.Tensor] = None, mesh=None):
+    """The image of `render_deblurred` and, given a [F, H, W, 3] stack
+    `targets`, its metric vector [psnr, ssim, ms_ssim] against
+    `targets[frame_id]`, followed, given `inputs`, by the PSNR of
+    `inputs[frame_id]` against the same target: (image, vector or None).
+    `exposure` (a number or a device scalar) overrides the frame's own.
+    On a (data, gauss) mesh the store is gathered first.  The counterpart
+    of the reference trainer's `_eval_render_deblurred`,
+    `_eval_render_novel` (`exposure` given) and
+    `_eval_render_deblurred_hdr` (`hdr_output`), with `_metric_vector`."""
+    if mesh is not None:
+        params = sharding.gather_params(params, mesh)
+    if exposure is not None and not isinstance(exposure, torch.Tensor):
+        # a float32 scalar, as the graphed call's exposure buffer holds it
+        exposure = torch.tensor(exposure, dtype=torch.float32, device=scene.timestamps.device)
+    img, _, _ = render_deblurred(params, scene, frame_id, cfg, hdr_output=hdr_output,
+                                 sh_degree=sh_degree, exposure=exposure)
+    if targets is None:
+        return img, None
+    target = frame_entry(targets, frame_id)
+    vec = losses.metric_vector(img, target)
+    if inputs is not None:
+        vec = torch.cat([vec, losses.psnr(frame_entry(inputs, frame_id), target)[None]])
+    return img, vec
+
+
 def interpolated_log_exposure(params: Params, timestamps, train_indices, frame_id: int) -> float:
     """Host-side: log-exposure estimate for a held-out frame by linear
     interpolation (in time) of the nearest surrounding train frames'
-    learned log exposures (clamped at the ends)."""
+    learned log exposures (clamped at the ends).  `params["log_exposures"]`
+    may be a host copy: an evaluation reads it once for all its frames."""
     ts = np.asarray(timestamps)
-    le = params["log_exposures"].detach().cpu().numpy()
+    le = params["log_exposures"]
+    le = le.detach().cpu().numpy() if isinstance(le, torch.Tensor) else np.asarray(le)
     tr = np.asarray(sorted(train_indices))
     return float(np.interp(float(ts[frame_id]), ts[tr], le[tr]))

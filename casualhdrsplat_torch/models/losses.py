@@ -95,7 +95,11 @@ def ms_ssim(a: torch.Tensor, b: torch.Tensor, scales: int = 5) -> torch.Tensor:
         side //= 2
         feasible += 1
     scales = min(scales, feasible)
-    weights = torch.tensor(MS_SSIM_WEIGHTS[:scales], device=a.device)
+    # filled on the device: a tensor made from Python data is a copy from
+    # the host, which a captured evaluation (utils/cuda_graphs.py) cannot hold
+    weights = torch.empty(scales, dtype=torch.float32, device=a.device)
+    for i, w in enumerate(MS_SSIM_WEIGHTS[:scales]):
+        weights[i].fill_(w)
     weights = weights / weights.sum()
 
     def half(img):  # 2x2 average pool, VALID
@@ -150,3 +154,9 @@ def exposure_prior(log_exposures: torch.Tensor, log_init: torch.Tensor) -> torch
 def psnr(a, b, max_val: float = 1.0):
     mse = torch.mean((a - b) ** 2)
     return 20.0 * math.log10(max_val) - 10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+
+
+def metric_vector(pred, target) -> torch.Tensor:
+    """[psnr, ssim, ms_ssim] of an [H, W, 3] pair as one device vector:
+    an evaluation reads each frame's metrics in one host read."""
+    return torch.stack([psnr(pred, target), ssim(pred, target), ms_ssim(pred, target)])

@@ -98,8 +98,8 @@ def hdr_recovery_metrics(t, video, eval_idx, deg, crf_cfg, gamma=2.2):
       radiance, CRF and exposure gauges as a user's slider would."""
     preds, gts = [], []
     for i in eval_idx[:3]:
-        hdr, _, _ = imf.render_deblurred(t.params, t.scene, int(i), t.cfg.model,
-                                         hdr_output=True, sh_degree=deg)
+        hdr, _ = t.renders.deblurred_scores(t.params, t.scene, int(i), t.cfg.model,
+                                            hdr_output=True, sh_degree=deg)
         preds.append(hdr.cpu().numpy())
         gts.append(np.asarray(video.sharp_hdr[int(i)].cpu()))
     p, g = np.stack(preds), np.stack(gts)
@@ -609,8 +609,8 @@ def main(argv=None) -> int:
         deg = t.active_sh_degree()
         with torch.no_grad():
             for i in eval_idx[:3]:
-                deb, _, _ = imf.render_deblurred(t.params, t.scene, int(i), cfg.model,
-                                                 sh_degree=deg)
+                deb, _ = t.renders.deblurred_scores(t.params, t.scene, int(i), cfg.model,
+                                                    sh_degree=deg)
                 metrics_mod.save_image(
                     os.path.join(args.render_dir, f"deblur_{i:03d}.png"), deb.cpu())
                 metrics_mod.save_image(
@@ -622,8 +622,8 @@ def main(argv=None) -> int:
             mid = t.scene.timestamps[2] + 0.5 * imf.exposure_of(t.params, 2)
             vm = imf.poses_at(t.params, t.scene, mid.reshape(1), cfg.model)[0]
             for j, dt_v in enumerate([0.25, 1.0, 4.0]):
-                ldr, _, _ = imf.render_pose(t.params, t.scene, vm, cfg.model,
-                                            exposure=torch.tensor(dt_v, device=device))
+                ldr, _, _ = t.renders.render_pose(t.params, t.scene, vm, cfg.model,
+                                                  exposure=torch.tensor(dt_v, device=device))
                 metrics_mod.save_image(os.path.join(args.render_dir, f"sweep_{j}.png"),
                                        ldr.cpu())
         print("renders under", args.render_dir, flush=True)
@@ -727,8 +727,8 @@ def aligned_block(t, eval_idx, steps: int, lr: float = 2e-3, holdout=(), save_di
         with torch.no_grad():
             t_mid = t.scene.timestamps[int(i)] + 0.5 * dt
             vm = imf.poses_at(t.params, t.scene, t_mid.reshape(1), model)[0]
-            raw, _, _ = imf.render_pose(t.params, t.scene, vm, model, exposure=dt,
-                                        sh_degree=deg)
+            raw, _, _ = t.renders.render_pose(t.params, t.scene, vm, model, exposure=dt,
+                                              sh_degree=deg)
         aligned, delta, _ = align(t.params, t.scene, vm, dt, gt)
         return raw, aligned, delta, gt
 

@@ -18,6 +18,11 @@ and runs the same round on it (`densify_and_prune_sharded`): shard-local
 free lists, so the slot surgery needs no collective but the report's sum.
 `rebalance_store` evens the alive counts of the blocks when they drift
 apart.
+
+A trainer (train/trainer.py) draws a round's split noise through
+`SplitNoise` into a static device buffer, on the host by the same
+generator and in the same order as `densify_and_prune` draws it; on the
+card the round's CUDA graph reads the buffer.
 """
 
 from __future__ import annotations
@@ -91,6 +96,35 @@ class AdcReport(NamedTuple):
     num_split: torch.Tensor
     num_pruned: torch.Tensor
     num_alive: torch.Tensor
+
+
+class SplitNoise:
+    """The split noise of a round, [2, n, 3] standard normals, in a static
+    buffer: `draw` fills it from `generator` with the numbers
+    `densify_and_prune` would draw (`torch.randn` on the host).  On the
+    CPU it draws straight into the buffer.  On the card it draws into a
+    pinned host buffer, then copies it over without waiting for the copy;
+    before the next draw overwrites the host buffer, the host waits for
+    that copy to finish."""
+
+    def __init__(self, n: int, device):
+        device = torch.device(device)
+        self.buffer = torch.empty((2, n, 3), dtype=torch.float32, device=device)
+        self._host = self._copied = None
+        if device.type == "cuda":
+            self._host = torch.empty((2, n, 3), dtype=torch.float32, pin_memory=True)
+            self._copied = torch.cuda.Event()
+
+    def draw(self, generator: torch.Generator) -> torch.Tensor:
+        """The next [2, n, 3] draw of `generator`, in `self.buffer`."""
+        if self._host is None:
+            return torch.randn(self.buffer.shape, generator=generator, dtype=torch.float32,
+                               out=self.buffer)
+        self._copied.synchronize()  # the last copy out of the host buffer is done
+        torch.randn(self._host.shape, generator=generator, dtype=torch.float32, out=self._host)
+        self.buffer.copy_(self._host, non_blocking=True)
+        self._copied.record()
+        return self.buffer
 
 
 @torch.no_grad()

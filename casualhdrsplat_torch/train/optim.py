@@ -249,7 +249,9 @@ def zero_state_at(opt_state, mask: torch.Tensor):
                 visit(child)
         elif (isinstance(node, torch.Tensor) and node.dim() >= 1
               and node.shape[0] == mask.shape[0] and node.is_floating_point()):
-            node[mask] = 0.0
+            # a masked fill, not node[mask] = 0 (which finds the mask's
+            # nonzeros on the host): a captured density-control round holds it
+            node.masked_fill_(mask.reshape(mask.shape + (1,) * (node.dim() - 1)), 0.0)
 
     visit(opt_state)
     return opt_state

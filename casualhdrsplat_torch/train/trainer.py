@@ -33,14 +33,18 @@ replay.  On a mesh only when every process group is NCCL (its collectives
 are captured with the step; a replay adds their calls and bytes to
 `mesh.stats`): gloo cannot be captured, so the CPU worlds and ranks that
 share one card step eagerly (`cuda_graphs.graphable`).  The first step of
-a key runs eagerly (the warm-up), the second captures.  Density control,
-the opacity reset and the rebalance run eagerly between replays, as the
-reference runs them as programs of their own, and write the store, its
-moments and statistics in place, so the graph keeps reading the tensors
-it was captured with; anything that rebinds them (`load`, a caller's
-assignment) makes the next step capture again.  `run_step_eager` is the
-same step without a graph: the yardstick, and the path on the CPU and on
-a gloo mesh.
+a key runs eagerly (the warm-up), the second captures.  A density-control
+round and the rebalance, programs of their own in the reference, replay
+graphs of their own between the step's replays (the round's static key:
+its two switches and the host numbers its body bakes in; its split noise
+drawn on the host into a static buffer first, `densify.SplitNoise`); the
+opacity reset runs eagerly.  Each writes the store, its moments and
+statistics in place, so the step's graph keeps reading the tensors it was
+captured with; anything that rebinds them (`load`, a caller's assignment)
+makes the next step capture again.  `run_step_eager` is the same step,
+round and rebalance without a graph: the yardstick, and the path on the
+CPU and on a gloo mesh.  `evaluate` replays the reference's evaluation
+programs likewise (`renders`), one host read per evaluated frame.
 
 `save` writes the reference's checkpoint payload plus what a continuation
 needs to match an uninterrupted run bit for bit, which the reference
@@ -151,6 +155,10 @@ class Trainer:
         self._adc_scale = densify_mod.grad_scale((self.dataset.width, self.dataset.height),
                                                  self.device)
         self._step_graphs = cuda_graphs.GraphCache()
+        self._round_graphs = cuda_graphs.GraphCache()
+        self._rebalance_graphs = cuda_graphs.GraphCache()
+        self._noise: Optional[densify_mod.SplitNoise] = None
+        self._sharp: Optional[torch.Tensor] = None
         self.renders = imf.GraphedRenders()
 
     def _capacity(self) -> int:
@@ -365,17 +373,45 @@ class Trainer:
             self.cfg.model.sh_degree,
         )
 
-    def _densify(self, screen_prune: bool, prune_only: bool = False):
-        args = (self.params["gaussians"], self.opt_state, self.adc, self._adc_generator,
+    def _densify(self, screen_prune: bool, prune_only: bool = False, graphed: bool = True):
+        """One density-control round, written in place: its AdcReport of
+        device scalars.  Its split noise is drawn into the static buffer
+        first (the draws `densify_and_prune` would make); then on a
+        graphable device a replay of the round's graph, else the round
+        eagerly: the same result."""
+        if self._noise is None:
+            self._noise = densify_mod.SplitNoise(self._capacity(), self.device)
+        self._noise.draw(self._adc_generator)
+        if graphed and cuda_graphs.graphable(self.device, self.mesh):
+            # every host number the round bakes in
+            key = (screen_prune, prune_only, self.scene_extent, self._image_diag,
+                   repr(self.cfg.densify), id(self.mesh))
+            call = self._round_graphs.get(
+                key, (*self._step_tensors(), self._noise.buffer),
+                lambda: cuda_graphs.GraphedCall(
+                    lambda: self._round(screen_prune, prune_only),
+                    f"the density-control round (screen_prune {screen_prune}, prune_only "
+                    f"{prune_only})",
+                    capture_error_mode="global" if self.mesh is None else "thread_local"))
+            report = call().clone()  # the next replay overwrites the graph's
+        else:
+            report = self._round(screen_prune, prune_only)
+        return densify_mod.AdcReport(*report.unbind())
+
+    def _round(self, screen_prune: bool, prune_only: bool) -> torch.Tensor:
+        """The round on the noise in the static buffer, written in place
+        (the body of the captured round): its report stacked [4]."""
+        eps = self._noise.buffer
+        args = (self.params["gaussians"], self.opt_state, self.adc, eps[0], eps[1],
                 self.cfg.densify, self.scene_extent, self._image_diag)
         if self.mesh is not None:
-            gauss, opt_state, adc, report = densify_mod.densify_and_prune_sharded(
+            gauss, opt_state, adc, report = densify_mod.densify_and_prune_sharded_with_noise(
                 *args, self.mesh, screen_prune=screen_prune, prune_only=prune_only)
         else:
-            gauss, opt_state, adc, report = densify_mod.densify_and_prune(
+            gauss, opt_state, adc, report = densify_mod.densify_and_prune_with_noise(
                 *args, screen_prune=screen_prune, prune_only=prune_only)
         self._write_state(gauss, opt_state, adc)
-        return report
+        return torch.stack(list(report))
 
     @torch.no_grad()
     def _write_state(self, gauss, opt_state=None, adc=None) -> None:
@@ -399,12 +435,24 @@ class Trainer:
         alive = sharding.gather_leaf(self.params["gaussians"]["alive"], self.mesh, "alive")
         return densify_mod.shard_alive_counts(alive, self.mesh.size(GAUSS_AXIS)).cpu().numpy()
 
-    def _rebalance(self) -> None:
+    def _rebalance(self, graphed: bool = True) -> None:
+        """Repack the store evenly over the blocks, in place: on a mesh whose
+        groups are all NCCL a replay of its graph (its all-gathers inside),
+        else eagerly."""
+        if graphed and cuda_graphs.graphable(self.device, self.mesh):
+            self._rebalance_graphs.get(
+                id(self.mesh), self._step_tensors(),
+                lambda: cuda_graphs.GraphedCall(self._rebalance_body, "the rebalance",
+                                                capture_error_mode="thread_local"))()
+        else:
+            self._rebalance_body()
+
+    def _rebalance_body(self) -> None:
         self._write_state(*densify_mod.rebalance_store(
             self.params["gaussians"], self.opt_state, self.adc,
             self.mesh.size(GAUSS_AXIS), mesh=self.mesh))
 
-    def _maybe_rebalance(self) -> bool:
+    def _maybe_rebalance(self, graphed: bool = True) -> bool:
         """After a sharded density-control round: repack the store across
         the blocks when their alive counts drifted apart by more than the
         configured share of a block.  Every rank decides on the same
@@ -415,7 +463,7 @@ class Trainer:
         counts = self._shard_counts()
         if counts.max() - counts.min() <= thr * self._capacity():
             return False
-        self._rebalance()
+        self._rebalance(graphed)
         return True
 
     def run_step(self) -> Dict[str, float]:
@@ -474,14 +522,14 @@ class Trainer:
         armed = self._screen_prune_armed or densify_mod.screen_prune_active(self.step, d)
         report = None
         if in_window and self.step % d.interval == 0:
-            report = self._densify(armed)
-            self._maybe_rebalance()
+            report = self._densify(armed, graphed=graphed)
+            self._maybe_rebalance(graphed)
         elif d.enabled and not in_window and armed and self.step % d.interval == 0:
             # Oversized-splat response outside the densify window: no
             # clone/split growth after densify.stop_iter, just screen-radius
             # pruning, whenever the screen prune is armed (by the clipped
             # watchdog or by densify.screen_prune_from).
-            report = self._densify(True, prune_only=True)
+            report = self._densify(True, prune_only=True, graphed=graphed)
         # Reset only while densification is active: the lineage stops at
         # stop_iter, else the final model could keep every opacity clamped
         # near-transparent.
@@ -584,17 +632,14 @@ class Trainer:
 
     # -- eval / io -----------------------------------------------------------
 
-    @staticmethod
-    def _metric_vector(pred, target):
-        """[psnr, ssim, ms_ssim] in one host read."""
-        return torch.stack([
-            losses.psnr(pred, target),
-            losses.ssim(pred, target),
-            losses.ms_ssim(pred, target),
-        ]).tolist()
+    def _sharp_stack(self) -> torch.Tensor:
+        """The dataset's sharp ground-truth frames on the device, once."""
+        if self._sharp is None:
+            self._sharp = torch.as_tensor(self.dataset.sharp_images, device=self.device)
+        return self._sharp
 
     @torch.no_grad()
-    def evaluate(self, indices=None) -> Dict[str, float]:
+    def evaluate(self, indices=None, graphed: bool = True) -> Dict[str, float]:
         """Score the model on held-out frames.
 
         Always: PSNR/SSIM/MS-SSIM (and LPIPS when models/perceptual.py
@@ -603,64 +648,67 @@ class Trainer:
         sharp frames (synthetic fixtures), additionally the deblurred
         mid-exposure render against sharp GT (`eval_sharp_psnr`) beside the
         captured blurry input's own PSNR against sharp GT
-        (`eval_sharp_psnr_input`): the deblurring gain is their gap."""
+        (`eval_sharp_psnr_input`): the deblurring gain is their gap.
+
+        Each render and its metric vector is one call of `renders` (on a
+        CUDA device, and on a mesh whose groups are all NCCL, a replay of
+        its graph: the reference's jitted eval renders and
+        `_metric_vector`); a frame's vectors are read in one host read, and
+        the learned exposures once for the novel views.  `graphed=False`
+        runs the same functions eagerly: the yardstick, equal to the bit."""
         idx = indices if indices is not None else self.dataset.eval_indices
         if len(idx) == 0:
             idx = self.dataset.train_indices[:2]
         deg = self.active_sh_degree()
         cfg = self.cfg.model
-        # the one-pose renders take the whole store, gathered once on a mesh
-        full = self.params if self.mesh is None else sharding.gather_params(self.params,
-                                                                             self.mesh)
-        blurred, sharp, sharp_in, lpips_vals = [], [], [], []
         sharp_gt = self.dataset.sharp_images
-        for i in idx:
-            fid = int(i)
-            out = self._render_frame(self.params, fid, deg)
-            target = self.images[fid]
-            blurred.append(self._metric_vector(out.blurred_ldr, target))
-            if perceptual.available():
-                lpips_vals.append(perceptual.lpips(out.blurred_ldr.cpu().numpy(),
-                                                   target.cpu().numpy()))
-            if sharp_gt is not None:
-                gt = torch.as_tensor(sharp_gt[fid], device=self.device)
-                deb, _, _ = imf.render_deblurred(full, self.scene, fid, cfg, sh_degree=deg)
-                sharp.append(self._metric_vector(deb, gt))
-                sharp_in.append(float(losses.psnr(target, gt)))
-        psnr_v, ssim_v, ms_v = np.mean(blurred, axis=0)
-        metrics = {"eval_psnr": float(psnr_v), "eval_ssim": float(ssim_v),
-                   "eval_ms_ssim": float(ms_v)}
         # True held-out novel-view eval: frames excluded from training,
         # rendered at the spline pose with an exposure interpolated from
-        # neighbouring train frames, scored against GT sharp frames.
-        if (
-            indices is None
-            and len(self.dataset.eval_indices) > 0
-            and len(self.dataset.train_indices) > 0
-            and sharp_gt is not None
-        ):
-            novel = []
-            for i in self.dataset.eval_indices:
-                log_e = imf.interpolated_log_exposure(
-                    self.params, self.dataset.timestamps,
-                    self.dataset.train_indices, int(i),
-                )
-                ldr, _, _ = imf.render_deblurred(
-                    full, self.scene, int(i), cfg, sh_degree=deg,
-                    exposure=torch.tensor(float(np.exp(log_e)), device=self.device),
-                )
-                gt = torch.as_tensor(sharp_gt[int(i)], device=self.device)
-                novel.append(self._metric_vector(ldr, gt))
-            metrics["eval_novel_psnr"] = float(np.mean([m[0] for m in novel]))
-            metrics["eval_novel_ssim"] = float(np.mean([m[1] for m in novel]))
+        # neighbouring train frames, scored against GT sharp frames.  Then
+        # `idx` is the held-out frames.
+        novel = (indices is None and len(self.dataset.eval_indices) > 0
+                 and len(self.dataset.train_indices) > 0 and sharp_gt is not None)
+        # on a mesh the deblurred renders gather the store, inside their graphs
+        renders = self.renders if graphed else imf
+        # one host read of the learned exposures for all novel views
+        log_exposures = ({"log_exposures": self.params["log_exposures"].cpu().numpy()}
+                         if novel else None)
+        rows, lpips_vals = [], []
+        for i in idx:
+            fid = int(i)
+            blurred, parts = renders.frame_scores(self.params, self.scene, fid, cfg, self.images,
+                                                  deg, self.mesh)
+            parts = [parts]
+            if perceptual.available():
+                lpips_vals.append(perceptual.lpips(blurred.cpu().numpy(),
+                                                   self.images[fid].cpu().numpy()))
+            if sharp_gt is not None:
+                # [psnr, ssim, ms_ssim] of the deblurred view, the input's psnr
+                parts.append(renders.deblurred_scores(self.params, self.scene, fid, cfg, False,
+                                                      deg, None, self._sharp_stack(),
+                                                      self.images, self.mesh)[1])
+            if novel:
+                log_e = imf.interpolated_log_exposure(log_exposures, self.dataset.timestamps,
+                                                      self.dataset.train_indices, fid)
+                parts.append(renders.deblurred_scores(
+                    self.params, self.scene, fid, cfg, False, deg, float(np.exp(log_e)),
+                    self._sharp_stack(), None, self.mesh)[1])
+            rows.append(torch.cat(parts).tolist())  # the frame's one host read
+        rows = np.asarray(rows)
+        psnr_v, ssim_v, ms_v = rows[:, 0:3].mean(axis=0)
+        metrics = {"eval_psnr": float(psnr_v), "eval_ssim": float(ssim_v),
+                   "eval_ms_ssim": float(ms_v)}
+        if novel:
+            metrics["eval_novel_psnr"] = float(np.mean(rows[:, 7]))
+            metrics["eval_novel_ssim"] = float(np.mean(rows[:, 8]))
         if lpips_vals:
             metrics["eval_lpips"] = float(np.mean(lpips_vals))
-        if sharp:
-            spsnr, sssim, sms = np.mean(sharp, axis=0)
+        if sharp_gt is not None:
+            spsnr, sssim, sms, sin = rows[:, 3:7].mean(axis=0)
             metrics["eval_sharp_psnr"] = float(spsnr)
             metrics["eval_sharp_ssim"] = float(sssim)
             metrics["eval_sharp_ms_ssim"] = float(sms)
-            metrics["eval_sharp_psnr_input"] = float(np.mean(sharp_in))
+            metrics["eval_sharp_psnr_input"] = float(sin)
         return metrics
 
     def save(self, out_dir: str) -> str:

@@ -41,6 +41,7 @@ dispatched before the failure; nothing falls back to the eager function.
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -58,6 +59,21 @@ def graphable(device, mesh=None) -> bool:
     if torch.device(device).type != "cuda":
         return False
     return mesh is None or mesh.backends() == {"nccl"}
+
+
+_side = threading.local()
+
+
+def _side_stream() -> torch.cuda.Stream:
+    """This thread's side stream on the current device, for all its
+    warm-ups and captures.  PyTorch keeps a cuBLAS workspace (32 MiB on an
+    H100) for every stream a matmul ran on, for the life of the process: a
+    new stream for each warm-up and capture left one behind each time."""
+    streams = _side.__dict__.setdefault("streams", {})
+    device = torch.cuda.current_device()
+    if device not in streams:
+        streams[device] = torch.cuda.Stream()
+    return streams[device]
 
 
 # the GraphedCall capturing on each stream, by the stream's handle: the
@@ -127,7 +143,7 @@ class GraphedCall:
         return self.outputs
 
     def _warm_up(self):
-        side = torch.cuda.Stream()
+        side = _side_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             out = self.fn()
@@ -140,7 +156,7 @@ class GraphedCall:
         before = [c.launches for c in counters]
         graph = torch.cuda.CUDAGraph()
         tracker = _LastOp()
-        stream = torch.cuda.Stream()  # this capture's own: `on_replay` finds it by it
+        stream = _side_stream()  # `on_replay` finds this capture by its stream
         self._pending = []
         _capturing[stream.cuda_stream] = self
         # A graph destroyed while this one captures invalidates the capture,

@@ -56,7 +56,15 @@
    every group moved,
    the round cloned or split, `alive` rose by what it granted less what it
    pruned, the moments of the new slots are zero, the reset clamped every
-   opacity.
+   opacity.  Then the density-control window: from one state with the
+   same draws (the split noise drawn on the host into a pinned buffer and
+   copied to a static one), the round replayed as a CUDA graph against
+   the same round run eagerly, every parameter, moment and statistic and
+   the report's four counts equal to the bit; the host's ms for the draw;
+   the round's
+   step against its neighbours (the steps before and after it), graphed
+   and eager, host-clock medians of 3; the round alone eager against
+   graphed (walls and busy shares).
 7. The sharded path (parallel/) on the same video, ladder4 with per-view
    binning: (a) a world of one (nccl, mesh (1, 1)) in this process, one
    step's gradients against the one-device trainer from the same state,
@@ -67,7 +75,11 @@
    and bytes of a graphed step equal to an eager step's (host seconds not
    measured under a replay), B1, B2, G1 and its index once a step,
    replays included; the graphed, eager and one-device walls and an
-   eager-and-graphed window; (b) two gloo ranks sharing cuda:0 on the
+   eager-and-graphed window; then the density-control window of 6 on the
+   mesh (a quarter of its full store put below the opacity prune first),
+   the rebalance graphed against eager from one state, and `evaluate()`
+   graphed against eager (the store gathered inside the deblurred renders'
+   graphs), each equal to the bit; (b) two gloo ranks sharing cuda:0 on the
    meshes (1, 2) and (2, 1), from 98,304 of the cloud's points: one
    render_frame and one step's gradients, packed and dense, against the
    one-device port on the card, a step (eager: gloo cannot be captured),
@@ -129,7 +141,14 @@
    report holds the reference's keys, every curve point is finite, the
    last eval of each rung beats its first in eval_psnr, and B1 and B2 were
    launched once per step; then both held against their plain versions on
-   the last step's inputs.  G1 once per step as well.
+   the last step's inputs.  G1 once per step as well.  Then the eval
+   window on the run's last trainer: `evaluate()` (the 2 held-out frames:
+   the blurred frame, the deblurred and the novel view, each with its
+   metric vector, replayed as CUDA graphs) against its eager twin
+   (`graphed=False`), the metrics equal to the bit, B1's and T1's launches
+   and the host's reads of the card per evaluated frame either way (one
+   read a frame, and the learned exposures once), walls (host-clock
+   medians of 3, alternating) and busy shares.
 12. bench (casualhdrsplat_torch.bench.main at build()'s defaults: 100k
    Gaussians, 800x800, 4 views, 16x16 tiles, chunk 128): its JSON line,
    B1, B2 and G1 once per step.
@@ -1430,6 +1449,231 @@ def graph_vs_eager_steps(trainer, steps, kernels, label, after_step=None):
     return walls
 
 
+class DeviceReads:
+    """Counts the reads of the card by the host while it is on: ops that
+    copy a CUDA tensor's data to the host (`.tolist()`, `.cpu()`,
+    `.item()`, `float()`), by name.  A replayed graph dispatches nothing,
+    and copies into the card are not reads."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        reads = self.reads = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                name = str(func)
+                src = args[1] if name.startswith("aten.copy_") else (args[0] if args else None)
+                dst = args[0] if name.startswith("aten.copy_") else out
+                if (getattr(src, "is_cuda", False) and hasattr(dst, "device")
+                        and dst.device.type == "cpu") or (
+                        name.startswith("aten._local_scalar_dense") and src.is_cuda):
+                    reads.append(name)
+                return out
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def round_twins(trainer, label, armed, calls=3, rebalance=False):
+    """From one state, the density-control round (or the rebalance) once
+    eagerly and `calls` times through its graph (warm-up, capture,
+    replays), each from that state with the same draws: every parameter,
+    moment and statistic after it, and the report's four counts, equal to
+    the bit.  Returns (the report, eager seconds, graphed seconds of each
+    call).  Leaves the trainer at the result."""
+    import torch
+
+    start = trainer_state(trainer)
+
+    def run(graphed):
+        if rebalance:
+            trainer._rebalance(graphed)
+            return None
+        return trainer._densify(armed, graphed=graphed)
+
+    out, eager_s = timed(lambda: run(False))
+    want = [x.clone() for x in trainer._step_tensors()]
+    want_report = None if out is None else [int(x) for x in out]
+    graphed_s = []
+    for i in range(calls):
+        set_trainer_state(trainer, start)  # the same tensors and draws
+        out, dt = timed(lambda: run(True))
+        graphed_s.append(dt)
+        report = None if out is None else [int(x) for x in out]
+        if report != want_report:
+            raise AssertionError(f"{label}: report {report} against the eager {want_report}")
+        for (kind, name), a, b in zip(step_tensor_kinds(trainer), trainer._step_tensors(), want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}, graphed call {i}: {kind} {name} differs from "
+                                     f"the eager one's")
+    cache = trainer._rebalance_graphs if rebalance else trainer._round_graphs
+    call = cache.call
+    if call.captures != 1 or call.replays < calls - 1:  # one key: captured once
+        raise AssertionError(f"{label}: {call.captures} captures, {call.replays} replays")
+    log(f"{label}: graphed against eager from one state with the same draws, every "
+        f"parameter, moment and statistic equal to the bit"
+        + ("" if out is None else f", report (cloned, split, pruned, alive) {want_report} "
+           "either way") + f"; eager {eager_s * 1e3:.2f} ms, graphed "
+        f"{[round(x * 1e3, 2) for x in graphed_s]} ms (warm-up, capture, replays)")
+    return want_report, eager_s, graphed_s
+
+
+def round_step_window(trainer, label, reps=3):
+    """The round's step against its neighbours: from one state, the three
+    steps around a densify round (the one before, the round's, the one
+    after), graphed (`run_step`, after two runs that warm up and capture
+    the round's graph) and eager (`run_step_eager`), alternating, each run
+    from that state with the same frames and draws.  Logs the host-clock
+    walls (medians of `reps`) and returns them {kind: [before, round,
+    after]} in ms.  The densify schedule is put back after."""
+    d = trainer.cfg.densify
+    keep = dataclasses.replace(d)
+    r = trainer.step + 2
+    d.enabled, d.start_iter, d.interval, d.stop_iter = True, r, r, r + 1
+    d.opacity_reset_interval = 10**9
+    d.sh_degree_interval = 1  # the model's SH degree: the step's graph stays
+    start = trainer_state(trainer)
+
+    def triplet(run):
+        set_trainer_state(trainer, start)
+        outs, walls = [], []
+        for _ in range(3):
+            out, dt = timed(run)
+            outs.append(out)
+            walls.append(dt * 1e3)
+        if "alive" not in outs[1] or any("alive" in o for o in (outs[0], outs[2])):
+            raise AssertionError(f"{label}: the round is not the middle step's: {outs}")
+        return walls, outs[1]
+
+    try:
+        for _ in range(2):  # the round's graph: warm-up, capture
+            triplet(trainer.run_step)
+        walls = {"graphed": [], "eager": []}
+        reports = {}
+        for _ in range(reps):
+            for kind, run in (("graphed", trainer.run_step), ("eager", trainer.run_step_eager)):
+                w, out = triplet(run)
+                walls[kind].append(w)
+                reports[kind] = out
+        set_trainer_state(trainer, start)
+    finally:
+        for f in dataclasses.fields(d):
+            setattr(d, f.name, getattr(keep, f.name))
+    med = {k: [float(np.median([w[i] for w in v])) for i in range(3)] for k, v in walls.items()}
+    counts = {k: [reports[k][c] for c in ("cloned", "split", "pruned", "alive")]
+              for k in reports}
+    log(f"{label}, the round's step against its neighbours (ms, medians of {reps}, before / "
+        f"round / after): graphed {[round(x, 2) for x in med['graphed']]} (the round's step "
+        f"{med['graphed'][1] - (med['graphed'][0] + med['graphed'][2]) / 2:+.2f} ms over its "
+        f"neighbours' mean), eager {[round(x, 2) for x in med['eager']]} "
+        f"({med['eager'][1] - (med['eager'][0] + med['eager'][2]) / 2:+.2f} ms); reports "
+        f"(cloned, split, pruned, alive) {json.dumps(counts)}; walls "
+        + json.dumps({k: [[round(x, 2) for x in w] for w in v] for k, v in walls.items()}))
+    return med
+
+
+def noise_draw_ms(trainer, reps=5):
+    """Host ms of the round's split-noise draw into the pinned buffer and
+    the start of its copy (`SplitNoise.draw`), on a copy of the trainer's
+    generator: the part of a graphed round the host does."""
+    import torch
+
+    g = torch.Generator().set_state(trainer._adc_generator.get_state())
+    walls = [timed(lambda: trainer._noise.draw(g))[1] * 1e3 for _ in range(reps)]
+    return float(np.median(walls))
+
+
+def densify_window(trainer, label, mesh=False):
+    """The density-control window: the round graphed against eager from one
+    state (`round_twins`), the host's share of a graphed round (the noise
+    draw), the round's step against its neighbours (`round_step_window`);
+    on one device also the round alone eager against graphed
+    (`eager_and_graphed`, profiled); on a mesh the rebalance graphed
+    against eager and `evaluate` graphed against eager (the store gathered
+    inside the deblurred renders' graphs)."""
+    from casualhdrsplat_torch.train import densify as densify_mod
+
+    # screen_prune as the trainer's next round would take it
+    armed = trainer._screen_prune_armed or densify_mod.screen_prune_active(
+        trainer.step, trainer.cfg.densify)
+    report, _, _ = round_twins(trainer, f"{label}: density-control round", armed)
+    if report[0] + report[1] <= 0:
+        raise AssertionError(f"{label}: the round cloned and split nothing: {report}")
+    log(f"{label}: the split noise [2, {trainer._capacity()}, 3] drawn on the host into the "
+        f"pinned buffer and its copy started: {noise_draw_ms(trainer):.2f} ms (median of 5)")
+    med = round_step_window(trainer, label)
+    if mesh:
+        round_twins(trainer, f"{label}: rebalance", armed, rebalance=True)
+        evaluate_twins(trainer, label)
+    else:
+        eager_and_graphed(f"{label}: density-control round",
+                          lambda: trainer._densify(armed, graphed=False),
+                          lambda: trainer._densify(armed))
+    return med
+
+
+def evaluate_twins(trainer, label, calls=3):
+    """`evaluate()` graphed `calls` times against its eager twin: the
+    metrics dict equal to the bit each time."""
+    want = trainer.evaluate(graphed=False)
+    for i in range(calls):
+        got = trainer.evaluate()
+        if got != want:
+            raise AssertionError(f"{label}: evaluate graphed {got} against eager {want}")
+    log(f"{label}: evaluate graphed ({calls} calls) equal to the bit to its eager twin: "
+        + json.dumps(want))
+    return want
+
+
+def eval_window(trainer, label):
+    """`evaluate()` graphed against its eager twin on one trainer: the
+    metrics equal to the bit; B1's and T1's launches and the host's reads
+    of the card per evaluated frame, either way; walls (host-clock
+    medians of 3, alternating) and busy shares (`eager_and_graphed`).
+    Returns B1's launches in the window."""
+    from casualhdrsplat_torch.ops import crf_fused
+    from casualhdrsplat_torch.ops import rasterize_dense as rd
+    from casualhdrsplat_torch.ops import rasterize_packed as rp
+
+    frames = len(trainer.dataset.eval_indices) or 2
+    b1 = rp.FWD_KERNEL if trainer.cfg.model.rasterize.packed else rd.FWD_KERNEL
+    kernels = (b1, crf_fused.FWD_KERNEL)
+    b1_start = b1.launches
+    evaluate_twins(trainer, label)
+    per_frame, reads = {}, {}
+    for kind, graphed in (("eager", False), ("graphed", True)):
+        before = [k.launches for k in kernels]
+        with DeviceReads() as dr:
+            trainer.evaluate(graphed=graphed)
+        per_frame[kind] = [(k.launches - b) / frames for k, b in zip(kernels, before)]
+        reads[kind] = len(dr.reads) / frames
+        if kind == "graphed":
+            read_ops = sorted(set(dr.reads))
+    novel = len(trainer.dataset.eval_indices) > 0
+    renders = 3 if novel else 2
+    if any(n != [renders, renders] for n in per_frame.values()):
+        raise AssertionError(f"{label}: launches of B1 and T1 a frame {per_frame}, "
+                             f"{renders} each expected")
+    if reads["graphed"] * frames != frames + novel:
+        raise AssertionError(f"{label}: {reads['graphed'] * frames} host reads in a graphed "
+                             f"evaluate of {frames} frames")
+    log(f"{label}: {frames} evaluated frames, {renders} renders each; launches a frame "
+        f"(B1, T1): eager {per_frame['eager']}, graphed {per_frame['graphed']}; host reads "
+        f"of the card a frame: eager {reads['eager']}, graphed {reads['graphed']} ({read_ops}: "
+        f"one a frame, and the learned exposures once)")
+    eager_and_graphed(label, lambda: trainer.evaluate(graphed=False), trainer.evaluate)
+    return b1.launches - b1_start
+
+
 def run_timed_steps(trainer, steps, kernels, label, after_step=None):
     """`steps` training steps, each graphed and eager from the same state
     (`graph_vs_eager_steps`), with the launch counts of `kernels` zeroed
@@ -1735,6 +1979,7 @@ def dense_train_phase(device, dataset, rd):
                     after_step)
     if len(reports) != 1 or trainer.step < DENSE_RESET_STEP:
         raise AssertionError("the timed steps must cross one densify round and one reset")
+    densify_window(trainer, "dense trainer")
     d.enabled = False  # the windows below time steps, not rounds (SH stays at 3)
     eager_and_graphed("dense training step", trainer.run_step_eager, trainer.run_step)
     fwd_launches, bwd_launches = rd.FWD_KERNEL.launches, rd.BWD_KERNEL.launches
@@ -2277,14 +2522,16 @@ def quality_phase(device, rp):
     from casualhdrsplat_torch.train import trainer as trainer_mod
 
     kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX)
-    per_step, captured, step_s = [], [], []
+    per_step, captured, step_s, trainers = [], [], [], []
     run_step = trainer_mod.Trainer.run_step
 
     def counted_step(trainer):
         """run_step, noting the B1, B2 and G1 launches it made; after the last
         step, B2's call on that state (frame 1's loss and gradients) is kept
         for the comparison with the plain versions: a replayed step makes
-        no call of the launcher to capture."""
+        no call of the launcher to capture.  The last trainer is kept for
+        the eval window."""
+        trainers[:] = [trainer]
         before = tuple(k.launches for k in kernels)
         out, dt = timed(lambda: run_step(trainer))
         per_step.append(tuple(k.launches - b for k, b in zip(kernels, before)))
@@ -2352,7 +2599,18 @@ def quality_phase(device, rp):
     res = measure_backward("quality_step", bwd_call, reps=10)
     with torch.no_grad():
         measure_compositor("quality_step_forward", bwd_call[:3] + bwd_call[6:], 1, reps=10)
-    return (*launches, res)
+    del bwd_call, captured
+
+    # the eval window on the run's last trainer (r05's fixture at 800x800)
+    trainer, = trainers
+    torch.cuda.reset_peak_memory_stats()
+    b1 = eval_window(trainer, f"evaluate (r05 fixture, {trainer.dataset.width}x"
+                              f"{trainer.dataset.height})")
+    log(f"eval window: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(the trainer, its step's graph and the evaluation's graphs)")
+    del trainer, trainers
+    torch.cuda.empty_cache()
+    return (launches[0] + b1, *launches[1:], res)
 
 
 def bench_phase(device, rp):
@@ -2568,6 +2826,11 @@ def sharded_world_of_one(device, dataset, rp):
             if "--profile" in sys.argv[1:]:
                 profile_window("one-device per-view step", one.run_step)
             eager_and_graphed("mesh (1, 1) step", sharded.run_step_eager, sharded.run_step)
+            # free slots for the round: a quarter of the store below the
+            # opacity prune (the store is full)
+            with torch.no_grad():
+                sharded.params["gaussians"]["opacity_logit"][::4] = -10.0
+            densify_window(sharded, "mesh (1, 1)", mesh=True)
             INDEX_LAUNCHES["mesh (1, 1)"] = launches[3]
             launches = launches[:3]
             del one, sharded

@@ -10,7 +10,10 @@ parallel/distributed.resume_or_start.
   bit against an uninterrupted run, through a densify round that splits
   (so the split noise is drawn after the resume) on the dense path, and on
   the packed default.  On the CPU the plain compositors add in a fixed
-  order, so every parameter, moment, statistic and scalar is equal.
+  order, so every parameter, moment, statistic and scalar is equal.  Also
+  a checkpoint saved on the step just before a round, on the eager path
+  and on the card's graphed path (the round's noise in its static
+  buffer), through a stand-in for GraphedCall.
 """
 
 import json
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_graphed_descents as descents
 from casualhdrsplat_torch import config as t_config
 from casualhdrsplat_torch.data import dataset as t_dataset
 from casualhdrsplat_torch.models import gaussians as t_gauss
@@ -216,6 +220,34 @@ def test_resume_continues_bit_for_bit(resume_dataset, tmp_path, packed):
     for k in a:
         assert torch.equal(a[k], b[k]), k
     assert resumed.opt_state["count"] == ref.opt_state["count"] == steps
+
+
+@pytest.mark.parametrize("path", ["eager", "graphed"])
+def test_resume_just_before_a_round_continues_bit_for_bit(resume_dataset, tmp_path,
+                                                          monkeypatch, path):
+    """A checkpoint saved on the step before a densify round: the resumed
+    run draws the round's split noise from the restored generator and
+    matches the uninterrupted eager run to the bit.  "graphed" takes the
+    card's path (the step's and the round's graphs) through a stand-in for
+    GraphedCall that calls the captured function.  The noise is drawn at
+    the round, never ahead, so the generator state a checkpoint stores is
+    the one the round draws from."""
+    steps, cut = 6, 3  # rounds at 4 and 6
+    ref = Trainer(_resume_cfg(True), resume_dataset, device="cpu")
+    ref_out = [ref.run_step() for _ in range(steps)]
+    assert "alive" not in ref_out[cut - 1] and ref_out[cut]["split"] > 0, ref_out
+    if path == "graphed":
+        descents.use_stand_in(monkeypatch)
+    first = Trainer(_resume_cfg(True), resume_dataset, device="cpu")
+    assert [first.run_step() for _ in range(cut)] == ref_out[:cut]
+    saved = first.save(str(tmp_path / "run"))
+    resumed = Trainer(_resume_cfg(True), resume_dataset, device="cpu")
+    resumed.load(saved)
+    assert [resumed.run_step() for _ in range(steps - cut)] == ref_out[cut:]
+    assert (resumed._round_graphs.call is not None) == (path == "graphed")
+    a, b = _state(resumed), _state(ref)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 def test_resume_or_start_without_checkpoint(resume_dataset, tmp_path):

@@ -186,6 +186,41 @@ def test_densify_draws_its_noise_from_the_generator():
     torch.testing.assert_close(a["means"], by_hand["means"], rtol=0, atol=0)
 
 
+def test_split_noise_buffer_draws_what_densify_draws():
+    """`SplitNoise.draw` (the graphed round's noise: `torch.randn(...,
+    out=)` into the static buffer on the CPU; on the card into a pinned
+    host buffer, then copied into the static buffer) gives
+    the numbers `densify_and_prune` draws, round after round, to the bit,
+    and `_with_noise` on them gives its round to the bit."""
+    rng = np.random.default_rng(3)
+    params, adc = _store(rng, 30), _adc(rng)
+    cfg = t_config.DensifyConfig(split_scale_threshold_rel=0.0)
+    noise = t_densify.SplitNoise(CAP, "cpu")
+    ahead, today = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
+    for _ in range(2):
+        buffer = noise.draw(ahead)
+        assert buffer is noise.buffer
+        torch.testing.assert_close(
+            buffer, torch.randn((2, CAP, 3), generator=torch.Generator().set_state(
+                today.get_state()), dtype=torch.float32), rtol=0, atol=0)
+        outs = []
+        for run in ("today", "buffer"):
+            p = convert.params_from_jax(params, device="cpu")
+            state = t_optim.Optimizer({}).init(p)
+            adc_t = convert.adc_from_numpy(*adc, device="cpu")
+            if run == "today":
+                outs.append(t_densify.densify_and_prune(p["gaussians"], state, adc_t, today, cfg,
+                                                        1.0, 100.0))
+            else:
+                outs.append(t_densify.densify_and_prune_with_noise(
+                    p["gaussians"], state, adc_t, buffer[0], buffer[1], cfg, 1.0, 100.0))
+        (a, _, _, rep_a), (b, _, _, rep_b) = outs
+        assert [int(x) for x in rep_a] == [int(x) for x in rep_b] and int(rep_a[1]) > 0
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(ahead.get_state(), today.get_state())
+
+
 def test_reset_opacity_matches_jax(rng):
     params = _store(rng, 30)
     out_j = j_densify.reset_opacity(jax.tree.map(jnp.asarray, params["gaussians"]), 0.02)

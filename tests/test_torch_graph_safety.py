@@ -37,11 +37,14 @@ across a densify round and an opacity reset (every parameter group within
 float atomics add in an order that changes from run to run, and the
 step's library kernels, cuDNN's among them, need not be deterministic);
 the graphed `render_pose` equal to the
-eager one to the bit; the kernels' launch counts per replay; and a failed
-capture raising with the op named.
+eager one to the bit; the kernels' launch counts per replay; a failed
+capture raising with the op named; and graphs made and dropped one after
+another leaving no memory behind (their warm-ups and captures share one
+side stream, so no cuBLAS workspace is left on a stream of their own).
 """
 
 import dataclasses
+import gc
 import traceback
 
 import numpy as np
@@ -276,6 +279,83 @@ def test_mesh_train_step_makes_no_host_read(host_reads, dataset, world_of_one, p
     assert t._step_graphs.call is None and np.isfinite(out["loss"])
 
 
+@pytest.mark.parametrize("kind", ["blurred", "deblurred", "novel", "hdr"])
+def test_eval_render_and_metric_vector_make_no_host_read(host_reads, kind):
+    """The functions `evaluate` and quality_run capture: a render and its
+    metric vector against a target stack read through the frame buffer
+    (the deblurred view also the input's own PSNR, the novel view at an
+    exposure from its buffer)."""
+    ds = _dataset()
+    t = Trainer(_train_cfg(True), ds, device="cpu")
+    sharp = torch.as_tensor(ds.sharp_images)
+    frame, dt = torch.tensor(1), torch.tensor(0.4)
+    m = t.cfg.model
+    with host_reads, torch.no_grad():
+        if kind == "blurred":
+            img, vec = imf.frame_scores(t.params, t.scene, frame, m, t.images, 1)
+        else:
+            img, vec = imf.deblurred_scores(
+                t.params, t.scene, frame, m, hdr_output=kind == "hdr", sh_degree=1,
+                exposure=dt if kind == "novel" else None,
+                targets=None if kind == "hdr" else sharp,
+                inputs=t.images if kind == "deblurred" else None)
+    assert host_reads.found == []
+    assert img.shape == (32, 32, 3)
+    assert (vec is None) == (kind == "hdr")
+    if vec is not None:
+        assert vec.shape == ((4,) if kind == "deblurred" else (3,))
+        assert bool(torch.isfinite(vec).all())
+
+
+@pytest.mark.parametrize("screen_prune,prune_only", [(False, False), (True, False), (True, True)],
+                         ids=["densify", "screen_prune", "prune_only"])
+def test_density_control_round_makes_no_host_read(host_reads, dataset, screen_prune,
+                                                  prune_only):
+    """The body of the captured round (`Trainer._round`), its split noise
+    read from the static buffer `densify.SplitNoise` fills."""
+    from casualhdrsplat_torch.train import densify as t_densify
+
+    cfg = _train_cfg(True, densify=True)
+    cfg.densify.start_iter = 100  # no round yet: statistics and free slots to act on
+    t = Trainer(cfg, dataset, device="cpu")
+    for _ in range(2):
+        t.run_step()
+    tensors = t._step_tensors()
+    t._noise = t_densify.SplitNoise(t._capacity(), t.device)
+    t._noise.draw(t._adc_generator)
+    with host_reads:
+        report = t._round(screen_prune, prune_only)
+    assert host_reads.found == []
+    assert report.shape == (4,) and int(report[3]) == int(t.params["gaussians"]["alive"].sum())
+    assert (int(report[0] + report[1]) > 0) != prune_only  # it did clone or split
+    assert all(a is b for a, b in zip(t._step_tensors(), tensors))
+    assert int(t.adc.count.sum()) == 0
+
+
+def test_mesh_round_rebalance_and_eval_make_no_host_read(host_reads, dataset, world_of_one):
+    """On the CPU world of one (gloo): the sharded round, the rebalance and
+    the mesh's eval renders (the store gathered inside the deblurred one)."""
+    from casualhdrsplat_torch.train import densify as t_densify
+
+    cfg = cases.trainer_cfg(1, 1)
+    t = Trainer(cfg, dataset, device="cpu", mesh=world_of_one)
+    t.run_step()
+    t._noise = t_densify.SplitNoise(t._capacity(), t.device)
+    t._noise.draw(t._adc_generator)
+    sharp = torch.as_tensor(dataset.sharp_images)
+    frame = torch.tensor(1)
+    m = t.cfg.model
+    with host_reads, torch.no_grad():
+        report = t._round(True, False)
+        t._rebalance_body()
+        _, blurred = imf.frame_scores(t.params, t.scene, frame, m, t.images, 1, world_of_one)
+        _, sharp_vec = imf.deblurred_scores(t.params, t.scene, frame, m, sh_degree=1,
+                                            targets=sharp, inputs=t.images, mesh=world_of_one)
+    assert host_reads.found == []
+    assert report.shape == (4,) and blurred.shape == (3,) and sharp_vec.shape == (4,)
+    assert {"densify_report", "rebalance", "gather_state"} <= set(world_of_one.stats)
+
+
 def test_sharded_bench_step_makes_no_host_read(host_reads, world_of_one):
     step, (block,), _ = t_bench.build_sharded(**cases.BENCH_TINY, mesh=world_of_one,
                                               device="cpu")
@@ -506,6 +586,79 @@ def test_graphed_render_pose_equals_eager(cuda):
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), mode
 
 
+def snapshot(t):
+    """Every tensor of the step and the split-noise generator's state."""
+    return [x.clone() for x in t._step_tensors()], t._adc_generator.get_state()
+
+
+def restore(t, state):
+    """Put a `snapshot` back, in place (the graphs keep reading them)."""
+    tensors, generator = state
+    with torch.no_grad():
+        for dst, src in zip(t._step_tensors(), tensors):
+            dst.copy_(src)
+    t._adc_generator.set_state(generator)
+
+
+def rounds_graphed_and_eager(t, calls=3, rebalance=False):
+    """From one state, the round (or the rebalance) `calls` times through
+    its graph (warm-up, capture, replays) and once eagerly, each from that
+    state with the same draws: every tensor of the step and the report
+    equal to the bit."""
+    start = snapshot(t)
+    run = (lambda graphed: t._rebalance(graphed)) if rebalance else (
+        lambda graphed: t._densify(True, graphed=graphed))
+    out = run(False)
+    want = (snapshot(t)[0], None if out is None else torch.stack(list(out)).cpu())
+    for _ in range(calls):
+        restore(t, start)
+        out = run(True)
+        got = (snapshot(t)[0], None if out is None else torch.stack(list(out)).cpu())
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+        assert (got[1] is None and want[1] is None) or torch.equal(got[1], want[1])
+    return want[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "dense"])
+def test_graphed_round_equals_eager(cuda, packed):
+    cfg = _train_cfg(packed, densify=True)
+    cfg.densify.start_iter = 100  # the round below is the first
+    t = Trainer(cfg, _dataset(cuda), device=cuda)
+    for _ in range(2):
+        t.run_step()
+    report = rounds_graphed_and_eager(t)
+    assert int(report[0] + report[1]) > 0
+    call = t._round_graphs.call
+    assert call.captures == 1 and call.replays == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "dense"])
+def test_graphed_evaluate_equals_eager(cuda, packed):
+    """Frames 0 and 2 held out: the blurred, deblurred and novel views and
+    their metric vectors, graphed (warm-up, capture, replay) against eager,
+    equal to the bit, with the same launches of the forward kernels."""
+    from casualhdrsplat_torch.ops import crf_fused
+    from casualhdrsplat_torch.ops import rasterize_dense as rd
+
+    cfg = _train_cfg(packed)
+    cfg.data.eval_every = 2
+    t = Trainer(cfg, _dataset(cuda), device=cuda)
+    kernels = (rp.FWD_KERNEL if packed else rd.FWD_KERNEL, crf_fused.FWD_KERNEL)
+    want = t.evaluate(graphed=False)
+    assert "eval_novel_psnr" in want
+    for _ in range(3):
+        before = [k.launches for k in kernels]
+        got = t.evaluate()
+        assert got == want
+        # two frames, three renders each, one launch of each kernel a render
+        assert [k.launches - b for k, b in zip(kernels, before)] == [6, 6]
+    # six calls of each graph: the warm-up, the capture and four replays
+    assert all(c.call.captures == 1 and c.call.replays == 5
+               for c in t.renders._graphs.values())
+
+
 @pytest.mark.cuda
 def test_kernels_treat_rows_outside_the_stream_as_empty(cuda):
     """B1 and B2 on the card: rows whose bounds leave the stream composite
@@ -521,6 +674,26 @@ def test_kernels_treat_rows_outside_the_stream_as_empty(cuda):
     assert torch.equal(d, d_want) and float(d[5:].abs().max()) == 0.0
     plain = rp.composite_stream_reference(stream.cpu(), *(b.cpu() for b in bad), statics)
     torch.testing.assert_close(out.cpu(), plain, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dropped_graphs_leave_no_memory_behind(cuda):
+    x = torch.randn(64, 64, device=cuda)
+    want = x @ x  # the current stream's cuBLAS workspace, kept for the process
+    first = cuda_graphs.GraphedCall(lambda: x @ x, "a matmul")
+    first(), first()  # the side stream's
+    del first
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(4):
+        call = cuda_graphs.GraphedCall(lambda: x @ x, "a matmul")
+        for _ in range(3):  # warm-up, capture, replay
+            assert torch.equal(call(), want)
+        del call
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
 
 
 @pytest.mark.cuda

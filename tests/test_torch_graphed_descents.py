@@ -31,7 +31,9 @@ B1, B2, G1 and T1 are deterministic; otherwise within 1e-4 x the largest +
 rtol 1e-3, the card's step tolerance), with the launches a replay counts;
 and a world of one over NCCL, mesh (1, 1), whose captured step matches the
 eager one from the same state, counts one launch of B1, B2, G1 and its
-index a step and the same collectives' calls and bytes.
+index a step and the same collectives' calls and bytes; on it also the
+graphed density-control round, rebalance and evaluate against their eager
+twins, equal to the bit.
 """
 
 import dataclasses
@@ -362,5 +364,50 @@ def test_nccl_world_of_one_graphed_step_matches_eager(cuda):
                 scale = max(float(other.float().abs().max()), 1e-30)
                 torch.testing.assert_close(leaf.float(), other.float(), atol=1e-4 * scale,
                                            rtol=1e-3, msg=str(path))
+        finally:
+            dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_graphed_round_and_rebalance_match_eager(cuda):
+    """On a mesh (1, 1) over NCCL: the sharded density-control round (its
+    report's all-reduce inside the graph) and the rebalance (its
+    all-gathers inside) graphed against eager from one state with the same
+    draws, every tensor of the step equal to the bit, the collectives a
+    replay counts the eager call's; and `evaluate` (the store gathered
+    inside the deblurred renders' graphs) equal to its eager twin."""
+    import torch.distributed as dist
+
+    from casualhdrsplat_torch.parallel.mesh import Mesh
+    from test_torch_graph_safety import rounds_graphed_and_eager
+
+    ds = t_dataset.make_synthetic_dataset(seed=3, device=cuda, n_gaussians=96, n_frames=3,
+                                          n_virtual=2, size=32)
+    cfg = aligner_cfg()
+    cfg.model.num_virtual_views = 2
+    cfg.model.rasterize = dataclasses.replace(cfg.model.rasterize, shared_binning=False)
+    cfg.densify.enabled = True
+    cfg.densify.start_iter = 100
+    cfg.densify.grad_threshold = 1e-7
+    cfg.data.eval_every = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rdv')}",
+                                world_size=1, rank=0)
+        try:
+            t = Trainer(cfg, ds, device=cuda, mesh=Mesh(1, 1))
+            assert cuda_graphs.graphable(cuda, t.mesh)
+            for _ in range(2):
+                t.run_step()
+            stats = []
+            for what in ("round", "rebalance"):
+                t.mesh.stats.clear()
+                rounds_graphed_and_eager(t, rebalance=what == "rebalance")
+                stats.append({k: v[:2] for k, v in t.mesh.stats.items()})
+            # the eager call, the warm-up and two replays (a capture runs none)
+            assert stats[0]["densify_report"][0] == 4 and stats[1]["rebalance"][0] > 0
+            assert t._round_graphs.call.replays == 2 and t._rebalance_graphs.call.replays == 2
+            want = t.evaluate(graphed=False)
+            for _ in range(3):
+                assert t.evaluate() == want
         finally:
             dist.destroy_process_group()

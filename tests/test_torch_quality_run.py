@@ -145,7 +145,7 @@ def test_hdr_recovery_metrics_match(fixtures, monkeypatch, j_quality):
     t_j = SimpleNamespace(params=params_j, _eval_render_deblurred_hdr=render_j)
     t_t = SimpleNamespace(params=convert.params_from_jax(np_params, device="cpu"),
                           scene=t_imf.build_scene(ds_r, cfg_t, device="cpu"),
-                          cfg=SimpleNamespace(model=cfg_t))
+                          cfg=SimpleNamespace(model=cfg_t), renders=t_imf.GraphedRenders())
     eval_idx = [0, 1, 2]
     got = t_quality.hdr_recovery_metrics(t_t, video_r, eval_idx, 1, cfg_t.crf)
     want = j_quality.hdr_recovery_metrics(t_j, video_j, eval_idx, 1, cfg_j.crf)
