@@ -33,7 +33,7 @@ from casualhdrsplat_torch.ops import binning
 from casualhdrsplat_torch.ops import rasterize as rast_mod
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
 from casualhdrsplat_torch.parallel import sharding
-from casualhdrsplat_torch.utils import cuda_graphs
+from casualhdrsplat_torch.utils import cuda_graphs, profiling
 
 Params = Dict[str, object]
 
@@ -246,7 +246,9 @@ def render_pose(
     """Eval-time rendering from an arbitrary pose: novel-view LDR (CRF at
     `exposure`), novel-view HDR (`hdr_output`, CRF skipped) or the
     alpha-normalized expected depth (`depth_output`).  Returns (image,
-    alpha, aux)."""
+    alpha, aux).  Its device marks (utils/profiling.py): render_begin,
+    project, bin and composite in the rasterizer, render_end."""
+    profiling.mark("render_begin", viewmat)
     deg = cfg.sh_degree if sh_degree is None else sh_degree
     act = gauss_mod.activate(params["gaussians"])
     if depth_output:
@@ -262,11 +264,14 @@ def render_pose(
         background=None if depth_output else _background(cfg, viewmat),
     )
     if depth_output:
-        return hdr[0, :, :, 0] / torch.clamp(alphas[0], min=1e-6), alphas[0], aux
-    if hdr_output:
-        return hdr[0], alphas[0], aux
-    dt = exposure if exposure is not None else 1.0
-    return crf_mod.apply(params["crf"], hdr[0] * dt, cfg.crf), alphas[0], aux
+        img = hdr[0, :, :, 0] / torch.clamp(alphas[0], min=1e-6)
+    elif hdr_output:
+        img = hdr[0]
+    else:
+        dt = exposure if exposure is not None else 1.0
+        img = crf_mod.apply(params["crf"], hdr[0] * dt, cfg.crf)
+    profiling.mark("render_end", img)
+    return img, alphas[0], aux
 
 
 def _tensors(tree):

@@ -62,7 +62,9 @@ def build(source_name: str) -> Path:
     """Compile csrc/<source_name> (if not built yet) and return the path of
     its shared library, named by a hash of the source, the headers it
     includes and the flags.  The compiler's log, including ptxas's register
-    and shared-memory report, is written beside it as <library>.log."""
+    and shared-memory report, is written beside it as <library>.log.  A
+    build that runs nvcc is the span `chs.kernel.build` (utils/profiling.py);
+    a library already built is not."""
     src = CSRC_DIR / source_name
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in [src, *_local_includes(src)])
                             + " ".join(NVCC_FLAGS).encode())
@@ -73,7 +75,10 @@ def build(source_name: str) -> Path:
     # two entry points of one source may be built at once by two threads
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    from casualhdrsplat_torch.utils import profiling  # which imports this module
+
+    with profiling.span("kernel.build", source_name):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     lib.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -21,7 +21,9 @@ dense (`cfg.packed = False`):
   entries and the overflow is counted in `aux.num_dropped`.
 
 Either way all views of a frame share one compositor launch (views stack
-along the output rows).
+along the output rows).  The device marks project (after the payload
+rows), bin (after binning and the gather, or the tile lists) and composite
+(after the tile reassembly) bracket the stages (utils/profiling.py).
 
 `cfg.backend`: "auto" and "pallas" (the reference's name for its kernels)
 both select the hand-written CUDA kernels of the chosen path, or their
@@ -46,6 +48,7 @@ from casualhdrsplat_torch.ops.composite import (
     composite_tiles,
 )
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
+from casualhdrsplat_torch.utils import profiling
 
 
 class RasterizeAux(NamedTuple):
@@ -92,11 +95,15 @@ def rasterize(
         projs = projs._replace(means2d=projs.means2d + means2d_offset)
     projs = cull_invisible(projs, opacities)
     payload = binning.build_payload(projs, colors, opacities)  # [V, N+1, 16]
+    profiling.mark("project", payload)
     if not cfg.packed or cfg.backend == "xla":
-        return _rasterize_dense(projs, payload, width, height, cfg, background)
-    if cfg.shared_binning and viewmats.shape[0] > 1:
-        return _rasterize_packed_shared(projs, payload, width, height, cfg, background)
-    return _rasterize_packed(projs, payload, width, height, cfg, background)
+        out = _rasterize_dense(projs, payload, width, height, cfg, background)
+    elif cfg.shared_binning and viewmats.shape[0] > 1:
+        out = _rasterize_packed_shared(projs, payload, width, height, cfg, background)
+    else:
+        out = _rasterize_packed(projs, payload, width, height, cfg, background)
+    profiling.mark("composite", out[0])
+    return out
 
 
 def _statics(v: int, width: int, height: int, cfg: RasterizeConfig) -> CompositeStatics:
@@ -135,9 +142,11 @@ def _rasterize_dense(projs, payload, width, height, cfg: RasterizeConfig, backgr
     counts = tiles.counts.reshape(tt)
     if statics.backend == "xla":
         gathered = binning.gather_payload(payload, tiles)  # [V, T, capacity, 16]
+        profiling.mark("bin", gathered)
         out4 = composite_tiles(gathered.reshape(tt, cfg.tile_capacity, binning.PAYLOAD_DIM),
                                statics, counts=counts)
     else:
+        profiling.mark("bin", counts)
         out4 = composite_tile_lists(payload.reshape(-1, binning.PAYLOAD_DIM),
                                     tiles.indices.reshape(tt, cfg.tile_capacity), statics,
                                     counts=counts)  # [tt, 4, P]
@@ -173,10 +182,10 @@ def _rasterize_packed(projs, payload, width, height, cfg: RasterizeConfig, backg
     # the one row gather: payload rows in compacted stream order, every
     # view's by its own ids (transpose: kernel G1).  Each view's unused
     # budget tail is one run of the pad id N, which G1 does not walk.
-    images, alphas = _composite(
-        stream_gather.gather_stream(payload, torch.stack(ids)), torch.stack(segs),
-        torch.stack(starts_cs), width, height, cfg, background,
-    )
+    streams = stream_gather.gather_stream(payload, torch.stack(ids))
+    segs, starts_cs = torch.stack(segs), torch.stack(starts_cs)
+    profiling.mark("bin", streams)
+    images, alphas = _composite(streams, segs, starts_cs, width, height, cfg, background)
     aux = RasterizeAux(radii=projs.radii, depths=projs.depths,
                        num_dropped=dropped, num_clipped=clipped)
     return images, alphas, aux
@@ -205,10 +214,10 @@ def _rasterize_packed_shared(projs, payload, width, height, cfg: RasterizeConfig
     )
     seg_c, starts_c = binning.waterfill_segments(seg_len, s_budget)
     stream_ids = binning.compact_stream_ids(s_gauss, starts, starts_c, s_budget, n)
-    images, alphas = _composite(
-        stream_gather.gather_stream(payload, stream_ids), seg_c.expand(v, -1),
-        starts_c.expand(v, -1), width, height, cfg, background,
-    )
+    streams = stream_gather.gather_stream(payload, stream_ids)
+    profiling.mark("bin", streams)
+    images, alphas = _composite(streams, seg_c.expand(v, -1), starts_c.expand(v, -1), width,
+                                height, cfg, background)
     aux = RasterizeAux(radii=projs.radii, depths=projs.depths,
                        num_dropped=seg_len.sum() - seg_c.sum(), num_clipped=clipped)
     return images, alphas, aux

@@ -16,6 +16,10 @@ every rank (d, g), in one SPMD program:
    (backward B4), reading the payload rows through the ids;
 4. all-gather every rank's tiles into the full images.
 
+The device marks project (after step 1), bin (after the gather or the
+tile lists) and composite (after step 4) bracket the stages as on one
+device (ops/rasterize.py).
+
 CRF x exposure, the blur mean and the loss then run replicated on every
 rank.  The backward runs through each collective's hand-written rule
 (parallel/collectives.py).  A rank that held nothing to do for a step
@@ -41,6 +45,7 @@ from casualhdrsplat_torch.ops.composite import composite_tile_lists
 from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
 from casualhdrsplat_torch.parallel import collectives
 from casualhdrsplat_torch.parallel.mesh import DATA_AXIS, GAUSS_AXIS, WORLD_AXIS, Mesh
+from casualhdrsplat_torch.utils import profiling
 
 _I32 = torch.int32
 
@@ -98,6 +103,7 @@ def _packed_local_tiles(payload, aux, mesh: Mesh, cfg: RasterizeConfig, width, h
     # B2 and its plain version write zeros to the rows of other ranks'
     # tiles, so the reference's clip_cotangent_rows has nothing to do here
     streams = stream_gather.gather_stream(torch.cat([payload, pad_row], dim=1), ids)
+    profiling.mark("bin", streams)
     # row v T + t owns [v S + starts[v, t], v S + starts[v, t + 1]) where
     # t is one of this rank's tiles, and nothing elsewhere
     starts = torch.stack(starts) + (torch.arange(v_local, device=dev) * s_budget)[:, None]
@@ -157,6 +163,7 @@ def _dense_local_tiles(payload, aux, mesh: Mesh, cfg: RasterizeConfig, width, he
     statics = rast._statics(v_local, width, height, cfg)._replace(tiles_per_view=tiles_pad)
     pad_row = torch.zeros((v_local, 1, binning.PAYLOAD_DIM), dtype=payload.dtype, device=dev)
     rows = torch.cat([payload, pad_row], dim=1).reshape(-1, binning.PAYLOAD_DIM)
+    profiling.mark("bin", rows)
     out4 = composite_tile_lists(rows, ids_l, statics, tile_indices=tile_indices,
                                 counts=counts_l)
     return out4.reshape(v_local, tpd, 4, cfg.tile_h * cfg.tile_w), dropped
@@ -218,6 +225,7 @@ def rasterize_sharded(
     opa = torch.where(proj.valid, act.opacities * proj.compensation, 0.0)
     payload_l = binning.build_payload_rows(proj.means2d, proj.conics, opa, colors)
     aux_l = torch.stack([proj.radii, proj.depths, proj.valid.float()], -1).detach()
+    profiling.mark("project", payload_l)
 
     # the pivot: gather the payload rows along gauss, then split the tiles.
     # The blocks land at [g B, (g + 1) B): the one-device order, so the
@@ -238,6 +246,7 @@ def rasterize_sharded(
     statics = rast._statics(num_views, width, height, cfg)
     hdr, alphas = rast._assemble_tiles(full.reshape(num_views * num_tiles, 4, th * tw),
                                        num_views * num_tiles, statics, height, width, None)
+    profiling.mark("composite", hdr)
     rd = torch.stack([proj.radii, proj.depths]).detach()  # [2, v_local, N / gauss]
     rd = torch.stack(collectives.all_gather(rd, mesh, WORLD_AXIS, "radii_depths"))
     rd = rd.reshape(n_data, n_gauss, 2, v_local, -1).permute(2, 0, 3, 1, 4)

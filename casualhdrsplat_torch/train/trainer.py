@@ -86,7 +86,7 @@ from casualhdrsplat_torch.train import checkpoint as ckpt_mod
 from casualhdrsplat_torch.train import densify as densify_mod
 from casualhdrsplat_torch.train import metrics as metrics_mod
 from casualhdrsplat_torch.train import optim as optim_mod
-from casualhdrsplat_torch.utils import cuda_graphs
+from casualhdrsplat_torch.utils import cuda_graphs, profiling
 
 
 class Trainer:
@@ -335,7 +335,9 @@ class Trainer:
             optim_mod.tree_set(p, path, leaf)
         offset = torch.zeros((self._capacity(), 2), device=self.device, requires_grad=True)
         loss, aux = self._loss(p, offset, frame_id, blur_sigma, deg)
+        profiling.mark("loss", loss)
         found = torch.autograd.grad(loss, leaves + [offset], allow_unused=True)
+        profiling.mark("backward", loss)
         grads: Dict[str, object] = {"crf": {}}
         for path, leaf, grad in zip(paths, leaves, found):
             optim_mod.tree_set(grads, path, torch.zeros_like(leaf) if grad is None else grad)
@@ -347,7 +349,11 @@ class Trainer:
         device count), ADC statistics, written in place.  Returns one fused
         scalar vector [loss, psnr, dropped, clipped], so that run_step reads
         the device once.  With `frame_id` and `blur_sigma` device tensors
-        it makes no host read: the body of the captured step."""
+        it makes no host read: the body of the captured step.  Its device
+        marks (utils/profiling.py): step_begin here, project, bin and
+        composite in the render, loss and backward around the gradient,
+        step_end after the statistics."""
+        profiling.mark("step_begin", self._frame_buf)
         loss, aux, grads, g2d = self.loss_and_grads(frame_id, blur_sigma, sh_degree)
         self.opt.apply(grads, self.opt_state, self.params, self.opt.count_buffer(self.device))
         radii = aux["radii"]
@@ -357,11 +363,13 @@ class Trainer:
             adc = densify_mod.accumulate(self.adc, g2d, radii, scale=self._adc_scale)
             for dst, src in zip(self.adc, adc):
                 dst.copy_(src)
-            return torch.stack([
+            scalars = torch.stack([
                 loss, aux["psnr"],
                 torch.as_tensor(aux["num_dropped"], device=self.device).float(),
                 torch.as_tensor(aux["num_clipped"], device=self.device).float(),
             ])
+        profiling.mark("step_end", scalars)
+        return scalars
 
     # -- loop ----------------------------------------------------------------
 
@@ -470,14 +478,24 @@ class Trainer:
         """One training step: on a CUDA device (on a mesh, one whose groups
         are all NCCL) a replay of the captured step, elsewhere the eager
         step."""
-        with self.lock:
-            return self._run_step(graphed=True)
+        return self._locked_step(graphed=True)
 
     def run_step_eager(self) -> Dict[str, float]:
         """One training step through the eager functions: the yardstick of
         the graphed step, from the same state the same result."""
-        with self.lock:
-            return self._run_step(graphed=False)
+        return self._locked_step(graphed=False)
+
+    def _locked_step(self, graphed: bool) -> Dict[str, float]:
+        """The step under `lock`, in the spans `chs.step` and its
+        `chs.step.lock` (utils/profiling.py), the step number their unit."""
+        unit = self.step
+        with profiling.span("step", unit):
+            with profiling.span("step.lock", unit):
+                self.lock.acquire()
+            try:
+                return self._run_step(graphed, unit)
+            finally:
+                self.lock.release()
 
     def _step_tensors(self):
         """Every tensor the step reads or writes, in a fixed order: a
@@ -504,32 +522,25 @@ class Trainer:
             capture_error_mode="global" if self.mesh is None else "thread_local"))
         return call()
 
-    def _run_step(self, graphed: bool) -> Dict[str, float]:
-        frame = int(self._rng.choice(self.dataset.train_indices))
-        sigma = self._c2f_sigma()
-        deg = self.active_sh_degree()
-        self.opt.count_buffer(self.device).fill_(self.opt_state["count"])
-        self._frame_buf.fill_(frame)
-        self._sigma_buf.fill_(sigma)
-        if graphed and cuda_graphs.graphable(self.device, self.mesh):
-            scalars = self._graphed_step(deg)
-        else:
-            scalars = self._train_step(self._frame_buf, self._sigma_buf, deg)
+    def _run_step(self, graphed: bool, unit: int) -> Dict[str, float]:
+        """The step, in the spans `chs.step.prepare`, `.launch`, `.round`
+        (when a round is due) and `.read` of unit `unit`."""
+        with profiling.span("step.prepare", unit):
+            frame = int(self._rng.choice(self.dataset.train_indices))
+            sigma = self._c2f_sigma()
+            deg = self.active_sh_degree()
+            self.opt.count_buffer(self.device).fill_(self.opt_state["count"])
+            self._frame_buf.fill_(frame)
+            self._sigma_buf.fill_(sigma)
+        with profiling.span("step.launch", unit):
+            if graphed and cuda_graphs.graphable(self.device, self.mesh):
+                scalars = self._graphed_step(deg)
+            else:
+                scalars = self._train_step(self._frame_buf, self._sigma_buf, deg)
         self.opt_state["count"] += 1
         self.step += 1
         d = self.cfg.densify
-        in_window = d.enabled and d.start_iter <= self.step <= d.stop_iter
-        armed = self._screen_prune_armed or densify_mod.screen_prune_active(self.step, d)
-        report = None
-        if in_window and self.step % d.interval == 0:
-            report = self._densify(armed, graphed=graphed)
-            self._maybe_rebalance(graphed)
-        elif d.enabled and not in_window and armed and self.step % d.interval == 0:
-            # Oversized-splat response outside the densify window: no
-            # clone/split growth after densify.stop_iter, just screen-radius
-            # pruning, whenever the screen prune is armed (by the clipped
-            # watchdog or by densify.screen_prune_from).
-            report = self._densify(True, prune_only=True, graphed=graphed)
+        report = self._round_if_due(graphed, unit)
         # Reset only while densification is active: the lineage stops at
         # stop_iter, else the final model could keep every opacity clamped
         # near-transparent.
@@ -537,7 +548,8 @@ class Trainer:
             self._write_state(densify_mod.reset_opacity(self.params["gaussians"]))
         if report is not None:
             scalars = torch.cat([scalars, torch.stack(list(report)).to(scalars.dtype)])
-        values = scalars.tolist()  # the one host read
+        with profiling.span("step.read", unit):
+            values = scalars.tolist()  # the one host read
         loss_v, psnr_v, dropped_v, clipped_v = values[:4]
         # binning-budget overflow is an approximation (far-tail drop per
         # tile): surfaced so a blown budget is never silent
@@ -546,6 +558,26 @@ class Trainer:
             out.update(zip(("cloned", "split", "pruned", "alive"), map(int, values[4:])))
         self._watch_overflow(out)
         return out
+
+    def _round_if_due(self, graphed: bool, unit: int):
+        """The density-control round the schedule asks for after this
+        step, and the rebalance after it, in the span `chs.step.round`: its
+        AdcReport, or None when no round is due."""
+        d = self.cfg.densify
+        in_window = d.enabled and d.start_iter <= self.step <= d.stop_iter
+        armed = self._screen_prune_armed or densify_mod.screen_prune_active(self.step, d)
+        if not (d.enabled and self.step % d.interval == 0 and (in_window or armed)):
+            return None
+        with profiling.span("step.round", unit):
+            if in_window:
+                report = self._densify(armed, graphed=graphed)
+                self._maybe_rebalance(graphed)
+                return report
+            # Oversized-splat response outside the densify window: no
+            # clone/split growth after densify.stop_iter, just screen-radius
+            # pruning, whenever the screen prune is armed (by the clipped
+            # watchdog or by densify.screen_prune_from).
+            return self._densify(True, prune_only=True, graphed=graphed)
 
     def _n_streams(self) -> int:
         """Streams binned per frame: one with shared binning, else one per

@@ -29,6 +29,13 @@ Python does around a captured call (the collectives' [calls, bytes] on a
 mesh) registers itself with `on_replay` while the graph captures, and runs
 again on every replay.
 
+Kernel nodes: at each capture a GraphedCall counts the kernel nodes of its
+graph (`nodes`, the launches every replay makes, the trace's marks
+included) and records them in `GRAPH_NODES` under the graph's name, the
+latest capture last: a reader finds the training step's graph there by
+its name ("the training step (SH degree d)").  A capture is the span
+`chs.graph.capture` (utils/profiling.py), the graph's name its unit.
+
 `AdamDescent` is the counterpart of the reference's `lax.scan` /
 `fori_loop` Adam descents (the pose aligners, the CRF's gamma pre-fit):
 one descent step captured over static tensors and replayed `steps` times,
@@ -48,6 +55,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from casualhdrsplat_torch.ops import cuda_build
+from casualhdrsplat_torch.utils import profiling
 
 
 def graphable(device, mesh=None) -> bool:
@@ -80,6 +88,9 @@ def _side_stream() -> torch.cuda.Stream:
 # backward of a captured step runs in autograd's own thread, on the stream
 # of its forward (`on_replay`)
 _capturing: dict = {}
+# the kernel nodes of each graph's latest capture, by the graph's name, the
+# latest capture last
+GRAPH_NODES: dict = {}
 
 
 def on_replay(fn: Callable[[], None]) -> bool:
@@ -123,6 +134,7 @@ class GraphedCall:
         self.warmed = False
         self.captures = 0
         self.replays = 0
+        self.nodes = 0  # kernel nodes of the captured graph
         # each counter's launches per replay
         self._rise: list = []
         # what `on_replay` registered during the capture
@@ -133,7 +145,8 @@ class GraphedCall:
         if self.graph is None:
             if not self.warmed:
                 return self._warm_up()
-            self._capture()
+            with profiling.span("graph.capture", self.name):
+                self._capture()
         self.graph.replay()
         self.replays += 1
         for counter, rise in self._rise:
@@ -169,6 +182,7 @@ class GraphedCall:
                                   capture_error_mode=self.capture_error_mode):
                 with tracker:
                     outputs = self.fn()
+                nodes = profiling.kernel_nodes(stream)
         except Exception as exc:
             for c, b in zip(counters, before):
                 c.launches = b
@@ -184,8 +198,10 @@ class GraphedCall:
                       if c.launches != b]
         for c, b in zip(counters, before):  # the capture launched nothing
             c.launches = b
-        self.graph, self.outputs = graph, outputs
+        self.graph, self.outputs, self.nodes = graph, outputs, nodes
         self.captures += 1
+        GRAPH_NODES.pop(self.name, None)
+        GRAPH_NODES[self.name] = nodes
 
 
 class GraphCache:

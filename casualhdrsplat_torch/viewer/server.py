@@ -15,6 +15,7 @@ PIL.
 from __future__ import annotations
 
 import io
+import itertools
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
@@ -112,23 +113,40 @@ def make_orbit_render_fn(trainer, radius: float = 4.0):
     Adam writes the trainer's parameters in place, and a request renders
     on the server's thread: each render holds `trainer.lock`, which the
     trainer holds across a step, so it sees one step's parameters.  On
-    the card a render replays a CUDA graph (`trainer.renders`)."""
+    the card a render replays a CUDA graph (`trainer.renders`).  A request
+    is the span `chs.request` with its children `.camera`, `.lock`,
+    `.launch` and `.copy_out` (utils/profiling.py), its ordinal their
+    unit."""
     import torch
 
     from casualhdrsplat_torch.data import synthetic
     from casualhdrsplat_torch.models import image_formation as imf
+    from casualhdrsplat_torch.utils import profiling
+
+    ordinals = itertools.count()
 
     def render(angle: float, log_exposure: float, mode: str):
-        cam = synthetic.orbit_camera(
-            angle, radius=radius, width=trainer.dataset.width,
-            img_height=trainer.dataset.height, device=trainer.device,
-        )
-        with trainer.lock, torch.no_grad():
-            img, _, _ = trainer.renders.render_pose(
-                trainer.params, trainer.scene, cam.viewmat, trainer.cfg.model,
-                exposure=torch.exp(torch.tensor(log_exposure, device=trainer.device)),
-                hdr_output=(mode == "hdr"),
-            )
-            return img.cpu().numpy()
+        unit = next(ordinals)
+        with profiling.span("request", unit):
+            with profiling.span("request.camera", unit):
+                cam = synthetic.orbit_camera(
+                    angle, radius=radius, width=trainer.dataset.width,
+                    img_height=trainer.dataset.height, device=trainer.device,
+                )
+            with profiling.span("request.lock", unit):
+                trainer.lock.acquire()
+            try:
+                with torch.no_grad():
+                    with profiling.span("request.launch", unit):
+                        img, _, _ = trainer.renders.render_pose(
+                            trainer.params, trainer.scene, cam.viewmat, trainer.cfg.model,
+                            exposure=torch.exp(torch.tensor(log_exposure,
+                                                            device=trainer.device)),
+                            hdr_output=(mode == "hdr"),
+                        )
+                    with profiling.span("request.copy_out", unit):
+                        return img.cpu().numpy()
+            finally:
+                trainer.lock.release()
 
     return render
