@@ -4,19 +4,23 @@ Counterpart of casualhdrsplat_tpu/models/gaussians.py: the store is
 allocated once at `max_gaussians` capacity with an `alive` mask, as a dict
 of tensors.  Activation: scales = exp(log_scales), opacity =
 sigmoid(logit) (0 for dead slots), quats normalized on use, SH -> linear
-HDR radiance via ops/sh.py.
+HDR radiance via ops/sh.py.  `project` takes the store to the
+compositor's payload rows: on CPU tensors through `activate`,
+`colors_for_view` and the plain projection chain, on CUDA tensors through
+kernel P1 (ops/projection_fused.py), which does all of it in one pass.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from casualhdrsplat_torch.ops import projection_fused
 from casualhdrsplat_torch.ops import sh as sh_ops
 from casualhdrsplat_torch.ops.knn import knn_mean_dist
-from casualhdrsplat_torch.ops.projection import view_directions
+from casualhdrsplat_torch.ops.projection import Projected, view_directions
 
 Params = Dict[str, torch.Tensor]
 
@@ -87,3 +91,71 @@ def colors_for_view(act: Activated, camtoworld: torch.Tensor, degree: int) -> to
     batch of poses [V,4,4] -> [V,N,3]."""
     dirs = view_directions(act.means3d, camtoworld)
     return sh_ops.eval_sh(degree, act.sh, dirs)
+
+
+def project(
+    store: Params,
+    viewmats: torch.Tensor,  # [V, 4, 4] world to camera
+    camtoworlds: Optional[torch.Tensor],  # [4, 4] (one for every view) or [V, 4, 4]
+    sh_degree: int,
+    fx, fy, cx, cy,
+    width: int,
+    height: int,
+    near_plane: float = 0.05,
+    antialias: bool = False,
+    colors: Optional[torch.Tensor] = None,  # [N, 3] or [1 or V, N, 3]
+    means2d_offset: Optional[torch.Tensor] = None,  # [N, 2]
+) -> Tuple[torch.Tensor, Projected]:
+    """The payload [V, N + 1, 16] of the store seen from `viewmats`, and
+    its projection (means2d, depths, conics, radii, valid [V, N, ...]):
+    SH radiance at `sh_degree` from the camera centres of `camtoworlds`
+    (one centre: a radiance every view shares), or `colors` where given
+    (then `camtoworlds` is not read), the projection, the offset added to
+    the means2d, the dead and invisible slots culled.  Differentiable in
+    every floating leaf, the matrices and the offset."""
+    viewmats = viewmats.reshape(-1, 4, 4)
+    if viewmats.device.type == "cuda":
+        return projection_fused.project_leaves(
+            store["means"], store["quats"], store["log_scales"], store["opacity_logit"],
+            store["alive"], store["sh_dc"], store["sh_rest"], sh_degree, camtoworlds, viewmats,
+            fx, fy, cx, cy, width, height, near_plane=near_plane, antialias=antialias,
+            colors=colors, means2d_offset=means2d_offset)
+    return project_chain(store, viewmats, camtoworlds, sh_degree, fx, fy, cx, cy, width,
+                         height, near_plane, antialias, colors, means2d_offset)
+
+
+def project_geometry(store: Params, viewmats: torch.Tensor, fx, fy, cx, cy, width: int,
+                     height: int, near_plane: float = 0.05,
+                     antialias: bool = False) -> Projected:
+    """Where the store's Gaussians fall in each view of `viewmats`:
+    `project`'s means2d, depths, radii and valid flags [V, N], for the
+    start-up checks that read no colour (the trainer's footprint guard,
+    models/image_formation.py `shared_binning_demand`).  Zero colours stand
+    in for the SH term, and the payload rows written beside them are
+    dropped: 64 bytes a view and Gaussian, ~67 MB at 8 views of 131,072
+    (~0.02 ms of an H100's bandwidth), in checks that run before the first
+    step."""
+    viewmats = viewmats.reshape(-1, 4, 4)
+    colors = torch.zeros((1,) + store["means"].shape, dtype=store["means"].dtype,
+                         device=viewmats.device)
+    return project(store, viewmats, None, 0, fx, fy, cx, cy, width, height,
+                   near_plane=near_plane, antialias=antialias, colors=colors)[1]
+
+
+def project_chain(store: Params, viewmats, camtoworlds, sh_degree: int, fx, fy, cx, cy,
+                  width: int, height: int, near_plane: float = 0.05, antialias: bool = False,
+                  colors: Optional[torch.Tensor] = None,
+                  means2d_offset: Optional[torch.Tensor] = None):
+    """`project` as the plain chain, on any device (the CPU path, and the
+    card tests' yardstick): `activate`, `colors_for_view`, then
+    ops/projection_fused.py `payload_chain`."""
+    viewmats = viewmats.reshape(-1, 4, 4)
+    act = activate(store)
+    if colors is None:
+        colors = colors_for_view(act, camtoworlds, sh_degree)
+    if colors.dim() == 2:
+        colors = colors.expand((viewmats.shape[0],) + colors.shape)
+    return projection_fused.payload_chain(
+        act.means3d, act.quats, act.scales, act.opacities, colors, viewmats, fx, fy, cx, cy,
+        width, height, near_plane=near_plane, antialias=antialias,
+        means2d_offset=means2d_offset)

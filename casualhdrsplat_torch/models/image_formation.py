@@ -31,7 +31,6 @@ from casualhdrsplat_torch.models import gaussians as gauss_mod
 from casualhdrsplat_torch.models import losses
 from casualhdrsplat_torch.ops import binning
 from casualhdrsplat_torch.ops import rasterize as rast_mod
-from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
 from casualhdrsplat_torch.parallel import sharding
 from casualhdrsplat_torch.utils import cuda_graphs, profiling
 
@@ -160,14 +159,10 @@ def shared_binning_demand(params: Params, scene: SceneStatic, frame_id, cfg: Mod
     viewmats = poses_at(
         params, scene, spline.sample_virtual_times(t_i, dt, cfg.num_virtual_views), cfg
     )
-    act = gauss_mod.activate(params["gaussians"])
-    projs = cull_invisible(
-        project_gaussians(
-            act.means3d, act.quats, act.scales, viewmats, scene.fx, scene.fy,
-            scene.cx, scene.cy, scene.width, scene.height,
-            near_plane=r.near_plane, antialias=r.antialias,
-        ),
-        act.opacities,
+    store = params["gaussians"]
+    projs = gauss_mod.project_geometry(
+        store, viewmats, scene.fx, scene.fy, scene.cx, scene.cy, scene.width, scene.height,
+        near_plane=r.near_plane, antialias=r.antialias,
     )
     validf = projs.valid.to(torch.float32)
     denom = torch.clamp(validf.sum(0), min=1.0)
@@ -180,7 +175,7 @@ def shared_binning_demand(params: Params, scene: SceneStatic, frame_id, cfg: Mod
         binning.tile_demand(projs.means2d[k], projs.radii[k], projs.valid[k], *args)
         for k in range(viewmats.shape[0])
     ])
-    n = act.means3d.shape[0]
+    n = store["means"].shape[0]
     budget = min(n * r.max_tiles_per_gaussian, r.stream_factor * n)
     return shared, per_view.max(), torch.tensor(budget, dtype=torch.int32,
                                                 device=shared.device)
@@ -214,19 +209,17 @@ def render_frame(
     dt = exposure_of(params, frame_id)
     viewmats = _virtual_viewmats(params, scene, frame_id, cfg, n)  # [n,4,4]
 
-    act = gauss_mod.activate(params["gaussians"])
     camtoworlds = lie.se3_inverse(viewmats)
-    if cfg.sh_shared_view:
-        # one SH eval at the window's middle view, shared by every view
-        mid = gauss_mod.colors_for_view(act, camtoworlds[n // 2], deg)
-        colors = mid.expand((n,) + mid.shape)
-    else:
-        colors = gauss_mod.colors_for_view(act, camtoworlds, deg)  # [n,N,3]
-
-    hdr, alphas, aux = rast_mod.rasterize(
-        act.means3d, act.quats, act.scales, act.opacities, colors, viewmats,
-        scene.fx, scene.fy, scene.cx, scene.cy, scene.width, scene.height,
-        cfg.rasterize, background=_background(cfg, dt), means2d_offset=means2d_offset,
+    # sh_shared_view: one SH eval at the window's middle view, shared by
+    # every view
+    payload, projs = gauss_mod.project(
+        params["gaussians"], viewmats, camtoworlds[n // 2] if cfg.sh_shared_view else camtoworlds,
+        deg, scene.fx, scene.fy, scene.cx, scene.cy, scene.width, scene.height,
+        near_plane=cfg.rasterize.near_plane, antialias=cfg.rasterize.antialias,
+        means2d_offset=means2d_offset,
+    )
+    hdr, alphas, aux = rast_mod.rasterize_projected(
+        projs, payload, scene.width, scene.height, cfg.rasterize, background=_background(cfg, dt),
     )
     ldr = crf_mod.apply(params["crf"], hdr * dt, cfg.crf)  # [n,H,W,3]
     return FrameRender(blurred_ldr=ldr.mean(0), sharp_ldr=ldr, sharp_hdr=hdr,
@@ -250,17 +243,19 @@ def render_pose(
     project, bin and composite in the rasterizer, render_end."""
     profiling.mark("render_begin", viewmat)
     deg = cfg.sh_degree if sh_degree is None else sh_degree
-    act = gauss_mod.activate(params["gaussians"])
+    store = params["gaussians"]
+    colors = None
     if depth_output:
         # alpha-composited camera-space z as the "radiance"
-        z = (act.means3d * viewmat[2, :3]).sum(-1) + viewmat[2, 3]
-        colors = torch.clamp(z, min=0.0)[:, None].repeat(1, 3)
-    else:
-        colors = gauss_mod.colors_for_view(act, lie.se3_inverse(viewmat), deg)
-    hdr, alphas, aux = rast_mod.rasterize(
-        act.means3d, act.quats, act.scales, act.opacities, colors[None],
-        viewmat[None], scene.fx, scene.fy, scene.cx, scene.cy,
-        scene.width, scene.height, cfg.rasterize,
+        z = (store["means"] * viewmat[2, :3]).sum(-1) + viewmat[2, 3]
+        colors = torch.clamp(z, min=0.0)[:, None].repeat(1, 3)[None]
+    payload, projs = gauss_mod.project(
+        store, viewmat[None], None if depth_output else lie.se3_inverse(viewmat), deg,
+        scene.fx, scene.fy, scene.cx, scene.cy, scene.width, scene.height,
+        near_plane=cfg.rasterize.near_plane, antialias=cfg.rasterize.antialias, colors=colors,
+    )
+    hdr, alphas, aux = rast_mod.rasterize_projected(
+        projs, payload, scene.width, scene.height, cfg.rasterize,
         background=None if depth_output else _background(cfg, viewmat),
     )
     if depth_output:

@@ -1,5 +1,8 @@
 """Gaussian rasterization.  Counterpart of
-casualhdrsplat_tpu/ops/rasterize.py.  Two paths, chosen by the config:
+casualhdrsplat_tpu/ops/rasterize.py.  The projection
+(ops/projection_fused.py, kernel P1 on the card) makes the payload rows;
+`rasterize_projected` bins and composites them, on one of two paths
+chosen by the config:
 
 packed (`cfg.packed`, the default):
     projection -> (tile, depth) binning -> budget waterfill -> one row
@@ -41,13 +44,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from casualhdrsplat_torch.config import RasterizeConfig
-from casualhdrsplat_torch.ops import binning, rasterize_packed, stream_gather
+from casualhdrsplat_torch.ops import binning, projection_fused, rasterize_packed, stream_gather
 from casualhdrsplat_torch.ops.composite import (
     CompositeStatics,
     composite_tile_lists,
     composite_tiles,
 )
-from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
+from casualhdrsplat_torch.ops.projection import Projected
 from casualhdrsplat_torch.utils import profiling
 
 
@@ -83,27 +86,37 @@ def rasterize(
 
     Returns (images [V,H,W,3], alphas [V,H,W], aux).
     """
-    if cfg.backend not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown rasterizer backend {cfg.backend!r}")
+    _check_backend(cfg)
     if viewmats.dim() == 2:
         viewmats = viewmats[None]
-    projs = project_gaussians(
-        means3d, quats, scales, viewmats, fx, fy, cx, cy, width, height,
-        near_plane=cfg.near_plane, antialias=cfg.antialias,
-    )  # every leaf [V, N, ...]
-    if means2d_offset is not None:
-        projs = projs._replace(means2d=projs.means2d + means2d_offset)
-    projs = cull_invisible(projs, opacities)
-    payload = binning.build_payload(projs, colors, opacities)  # [V, N+1, 16]
+    payload, projs = projection_fused.project_payload(
+        means3d, quats, scales, opacities, colors, viewmats, fx, fy, cx, cy, width, height,
+        near_plane=cfg.near_plane, antialias=cfg.antialias, means2d_offset=means2d_offset,
+    )  # payload [V, N+1, 16], every leaf of projs [V, N, ...]
+    return rasterize_projected(projs, payload, width, height, cfg, background)
+
+
+def rasterize_projected(projs: Projected, payload: torch.Tensor, width: int, height: int,
+                        cfg: RasterizeConfig, background: Optional[torch.Tensor] = None):
+    """Bin and composite V views of projected Gaussians: `payload` [V, N+1,
+    16] and `projs` as ops/projection_fused.py (or models/gaussians.py
+    `project`) returns them.  Returns (images [V,H,W,3], alphas [V,H,W],
+    aux)."""
+    _check_backend(cfg)
     profiling.mark("project", payload)
     if not cfg.packed or cfg.backend == "xla":
         out = _rasterize_dense(projs, payload, width, height, cfg, background)
-    elif cfg.shared_binning and viewmats.shape[0] > 1:
+    elif cfg.shared_binning and projs.depths.shape[0] > 1:
         out = _rasterize_packed_shared(projs, payload, width, height, cfg, background)
     else:
         out = _rasterize_packed(projs, payload, width, height, cfg, background)
     profiling.mark("composite", out[0])
     return out
+
+
+def _check_backend(cfg: RasterizeConfig):
+    if cfg.backend not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown rasterizer backend {cfg.backend!r}")
 
 
 def _statics(v: int, width: int, height: int, cfg: RasterizeConfig) -> CompositeStatics:

@@ -42,7 +42,6 @@ from casualhdrsplat_torch.models import image_formation as imf
 from casualhdrsplat_torch.ops import binning, rasterize_packed, stream_gather
 from casualhdrsplat_torch.ops import rasterize as rast
 from casualhdrsplat_torch.ops.composite import composite_tile_lists
-from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
 from casualhdrsplat_torch.parallel import collectives
 from casualhdrsplat_torch.parallel.mesh import DATA_AXIS, GAUSS_AXIS, WORLD_AXIS, Mesh
 from casualhdrsplat_torch.utils import profiling
@@ -215,15 +214,11 @@ def rasterize_sharded(
 
     vms = viewmats[d * v_local:(d + 1) * v_local]
     real_view = [d * v_local + j < num_views for j in range(v_local)]
-    act = gauss_mod.activate(gp)
-    colors = gauss_mod.colors_for_view(act, lie.se3_inverse(vms), sh_degree)
-    proj = project_gaussians(
-        act.means3d, act.quats, act.scales, vms, fx, fy, cx, cy, width, height,
-        near_plane=cfg.near_plane, antialias=cfg.antialias,
+    payload_l, proj = gauss_mod.project(
+        gp, vms, lie.se3_inverse(vms), sh_degree, fx, fy, cx, cy, width, height,
+        near_plane=cfg.near_plane, antialias=cfg.antialias, means2d_offset=offset,
     )
-    proj = cull_invisible(proj._replace(means2d=proj.means2d + offset), act.opacities)
-    opa = torch.where(proj.valid, act.opacities * proj.compensation, 0.0)
-    payload_l = binning.build_payload_rows(proj.means2d, proj.conics, opa, colors)
+    payload_l = payload_l[:, :-1]  # the block's rows, without the pad row
     aux_l = torch.stack([proj.radii, proj.depths, proj.valid.float()], -1).detach()
     profiling.mark("project", payload_l)
 

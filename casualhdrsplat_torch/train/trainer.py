@@ -76,7 +76,6 @@ from casualhdrsplat_torch.models import image_formation as imf
 from casualhdrsplat_torch.models import losses
 from casualhdrsplat_torch.models import perceptual
 from casualhdrsplat_torch.ops.binning import tile_grid
-from casualhdrsplat_torch.ops.projection import cull_invisible, project_gaussians
 from casualhdrsplat_torch.parallel import collectives
 from casualhdrsplat_torch.parallel import mesh as mesh_mod
 from casualhdrsplat_torch.parallel import render as prender
@@ -228,20 +227,16 @@ class Trainer:
         (docs/TUNING.md: 'clipped at step 0 is a correctness smell')."""
         r = self.cfg.model.rasterize
         with torch.no_grad():
-            act = gauss_mod.activate(self.params["gaussians"])
-            proj = cull_invisible(
-                project_gaussians(
-                    act.means3d, act.quats, act.scales,
-                    torch.as_tensor(self.dataset.viewmats[0], device=self.device),
-                    self.scene.fx, self.scene.fy, self.scene.cx, self.scene.cy,
-                    self.scene.width, self.scene.height,
-                    near_plane=r.near_plane, antialias=r.antialias,
-                ),
-                act.opacities,
+            proj = gauss_mod.project_geometry(
+                self.params["gaussians"],
+                torch.as_tensor(self.dataset.viewmats[0], device=self.device),
+                self.scene.fx, self.scene.fy, self.scene.cx, self.scene.cy,
+                self.scene.width, self.scene.height,
+                near_plane=r.near_plane, antialias=r.antialias,
             )
-        m2 = proj.means2d.cpu().numpy()
-        rad = proj.radii.cpu().numpy()
-        val = proj.valid.cpu().numpy()
+        m2 = proj.means2d[0].cpu().numpy()
+        rad = proj.radii[0].cpu().numpy()
+        val = proj.valid[0].cpu().numpy()
         ntx, nty = tile_grid(self.scene.width, self.scene.height, r.tile_h, r.tile_w)
         tx0 = np.clip(np.floor((m2[:, 0] - rad) / r.tile_w), 0, ntx - 1)
         tx1 = np.clip(np.floor((m2[:, 0] + rad) / r.tile_w), 0, ntx - 1)

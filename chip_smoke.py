@@ -7,7 +7,8 @@
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
    started together, sm_90a: B1-B4, both halves of kernel T1, the CRF
    MLP of ops/crf_fused.py, G1, the packed stream gather's transpose of
-   ops/stream_gather.py, and the counting pass that builds G1's index)
+   ops/stream_gather.py, the counting pass that builds G1's index, and
+   both halves of kernel P1, the projection of ops/projection_fused.py)
    and prints ptxas's register and spill lines;
    then T1's instruction mix per element from its SASS (cuobjdump) and the
    least time its MUFU pipes and issue slots need for a frame, and T1 at
@@ -22,7 +23,8 @@
    packed branch) and render_pose at 3 orbit angles in LDR and HDR (the
    per-view packed branch).  The weights are random, from a fixed seed.
    Checks the outputs (finite, shaped, in range) and that the forward
-   kernel was launched on both branches (its count, zeroed just before).
+   kernel was launched on both branches (its count, zeroed just before),
+   and P1's forward once a request, its backward never.
    The same requests then go through image_formation.GraphedRenders (the
    viewer's, the command line's and entry()'s path: one CUDA graph per
    mode, warm-up, capture, replays), each equal to the eager output to the
@@ -42,9 +44,10 @@
    every scalar and every tensor of the step held together (the
    card-vs-CPU step tolerance).  Checks that every scalar is finite,
    that every parameter group moved, that the density-control statistics
-   rose and that the packed forward and backward kernels and G1 were each
-   launched once per step, a replay included (counts zeroed just before
-   the steps).  Then two eager steps from one state: the largest
+   rose and that the packed forward and backward kernels, G1 and both
+   halves of P1 were each launched once per step, a replay included
+   (counts zeroed just before the steps; P1's counted from where they
+   stand).  Then two eager steps from one state: the largest
    difference of every gradient group and tensor of the step is logged.
 6. Dense training on the same video: a Trainer on PRESETS["ladder4"] with
    the dense RasterizeConfig and density control on, its store built from
@@ -126,7 +129,10 @@
    bound; T1 against its plain versions (forward atol T1_ATOL, backward at
    the backward tolerance with the clip's ties exempt, two launches equal
    to the bit) on a frame's, a
-   pose's and a training step's inputs.  Prints the eager and the graphed
+   pose's and a training step's inputs; P1 against the chain it replaces
+   (models/gaussians.py `project_chain`: the forward equal, the backward
+   within P1_GRAD_RTOL of autograd's by relative norm, two launches equal
+   to the bit) on a training step's 8 views and a served pose.  Prints the eager and the graphed
    walls and profiled busy shares of render_frame, render_pose, both
    training steps and bench's step, all from this run.
 11. The at-spec quality run (casualhdrsplat_torch.quality_run, in this
@@ -160,7 +166,9 @@
 15. Prints a `{"kernels": [...]}` line (G1's index an entry of its own,
    its launches read from its own counter wherever G1's are counted above,
    and equal to them; G1's `ms` holds its index's, `kernel_ms` is the
-   kernel alone) and, last, `{"ok": true, "device": {...}}`.
+   kernel alone; P1's forward and backward at a training step's inputs,
+   their launches the main path's from the serving phase on) and, last,
+   `{"ok": true, "device": {...}}`.
 
 Any failed phase exits non-zero without the last line.  There is no CPU
 fallback: without a CUDA device the script exits 2 at once.
@@ -757,6 +765,183 @@ def crf_prefit_phase(device):
     if not bool(torch.isfinite(curve).all()) or not bool((curve[1:] >= curve[:-1] - 1e-6).all()):
         raise AssertionError("crf.create: the fitted response is not finite and monotone")
     return t_graphed, t_eager
+
+
+# Kernel P1 (ops/projection_fused.py), held against the plain chain it
+# replaces (models/gaussians.py `project_chain`) on the inputs a path gives
+# models/gaussians.py `project`: the forward's outputs (payload, means2d,
+# depths, radii, valid) equal to the bit; the backward, through a fixed
+# random weighting of the payload, per input ||g - g_chain|| / ||g_chain||
+# <= P1_GRAD_RTOL, two launches equal to the bit.  The kernel chains the
+# chain's derivatives in another order and sums the views and the pose
+# gradient in its own, so the two differ by float32 rounding (~4e-7 at
+# ladder4-full's size); a wrong derivative reads 1e-2 or more.  Its bound:
+# bytes (csrc/projection_fwd.cu, csrc/projection_bwd.cu): the leaves read
+# once (the SH coefficients up to the active degree), a view's 81 bytes
+# written (the 64-byte row, means2d, depth, radius, flag); the backward
+# reads the leaves again and 48 bytes of a view's row gradient, and writes
+# each gradient asked for once.
+P1_GRAD_RTOL = 2e-5
+P1_OUTPUTS = ("payload", "means2d", "depths", "radii", "valid")
+# the backward's reads of a view's row gradient (three float4 loads)
+P1_ROW_GRAD_BYTES = 48
+
+
+def capture_project(run):
+    """(args, kwargs) of every call `run()` makes of models/gaussians.py
+    `project` (which still runs), each tensor and each of the store's
+    leaves detached and cloned as the call saw them; the kernels' launches
+    of `run()` put back out of the counts."""
+    import torch
+
+    from casualhdrsplat_torch.models import gaussians as gauss_mod
+
+    def freeze(a):
+        if isinstance(a, dict):
+            return {k: freeze(v) for k, v in a.items()}
+        if isinstance(a, torch.Tensor):
+            with torch.inference_mode(False):
+                return a.detach().clone()
+        return a
+
+    calls, original = [], gauss_mod.project
+
+    def recorder(*args, **kw):
+        calls.append((tuple(freeze(a) for a in args), {k: freeze(v) for k, v in kw.items()}))
+        return original(*args, **kw)
+
+    gauss_mod.project = recorder
+    try:
+        with uncounted():
+            run()
+    finally:
+        gauss_mod.project = original
+    return calls
+
+
+def _nbytes(t) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def p1_bytes(inputs, statics):
+    """(the forward's bytes, the backward's bytes without its gradients'
+    writes) of one call of P1's launchers (`_forward_cuda`'s inputs and
+    statics)."""
+    means, _, _, _, sh_dc, sh_rest, colors, viewmats, _, offset, alive = inputs[:11]
+    n, v = means.shape[0], viewmats.shape[0]
+    leaves = sum(_nbytes(t) for t in (*inputs[:5], colors, offset, alive))
+    if statics.degree > 0:
+        leaves += n * ((statics.degree + 1) ** 2 - 1) * 3 * sh_rest.element_size()
+    return leaves + v * n * 81 + v * 64, leaves + v * n * P1_ROW_GRAD_BYTES
+
+
+def measure_projection(label, call, reps):
+    """P1 against `project_chain` on one captured call of `project`
+    (`capture_project`): the forward to the bit, the backward of every
+    input `project` can differentiate (the store's floating leaves, the
+    view matrices, the camera-to-world matrices, the colors and the offset
+    where given) by relative norm, two backward launches equal to the bit;
+    the kernels' times (CUDA events around the launchers), the chain's
+    (its forward, and autograd's backward of it), the bounds.  Returns
+    (forward's numbers, backward's numbers)."""
+    import torch
+
+    from casualhdrsplat_torch.models import gaussians as gauss_mod
+    from casualhdrsplat_torch.ops import projection_fused as pf
+
+    args, kw = call
+    store, viewmats, cams, rest = args[0], args[1], args[2], args[3:]
+
+    def flat(out):
+        payload, projs = out
+        return (payload, projs.means2d, projs.depths, projs.radii, projs.valid)
+
+    def differentiable():
+        """Fresh leaves, each floating one asking for a gradient: (the
+        call's arguments, kwargs, {name: leaf})."""
+        leaves = {k: t.clone().requires_grad_(t.is_floating_point()) for k, t in store.items()}
+        wanted = {k: t for k, t in leaves.items() if t.requires_grad}
+        vm = viewmats.clone().requires_grad_(True)
+        wanted["viewmats"] = vm
+        c = cams
+        if isinstance(cams, torch.Tensor):
+            c = wanted["camtoworlds"] = cams.clone().requires_grad_(True)
+        kw2 = dict(kw)
+        for name in ("colors", "means2d_offset"):
+            if kw.get(name) is not None:
+                kw2[name] = wanted[name] = kw[name].clone().requires_grad_(True)
+        return (leaves, vm, c, *rest), kw2, wanted
+
+    def grads(fn, d_payload):
+        a, k, wanted = differentiable()
+        payload = fn(*a, **k)[0]
+        gs = torch.autograd.grad(payload, list(wanted.values()), d_payload, allow_unused=True)
+        return {name: torch.zeros_like(w) if g is None else g
+                for (name, w), g in zip(wanted.items(), gs)}
+
+    with uncounted():
+        with torch.no_grad():
+            got = flat(gauss_mod.project(*args, **kw))
+            want = flat(gauss_mod.project_chain(*args, **kw))
+        unequal = [name for name, a, b in zip(P1_OUTPUTS, got, want)
+                   if a.dtype != b.dtype or not torch.equal(a, b)]
+        if unequal:
+            raise AssertionError(f"projection[{label}]: P1's forward differs from the chain's "
+                                 f"in {unequal}")
+        # equal values; a zero of the other sign would be the only other bits
+        signed_zeros = sum(int((a.contiguous().view(torch.uint8)
+                                != b.contiguous().view(torch.uint8)).sum())
+                           for a, b in zip(got, want))
+        views, n = got[0].shape[0], got[0].shape[1] - 1
+        gen = torch.Generator(device=got[0].device).manual_seed(SEED + 19)
+        d_payload = torch.randn(got[0].shape, generator=gen, device=got[0].device)
+        del got, want
+        g_p1 = grads(gauss_mod.project, d_payload)
+        g_again = grads(gauss_mod.project, d_payload)
+        g_chain = grads(gauss_mod.project_chain, d_payload)
+        gaps = {name: float((g_p1[name] - g_chain[name]).norm()
+                            / g_chain[name].norm().clamp(min=1e-30)) for name in g_chain}
+        deterministic = all(torch.equal(g_p1[k], g_again[k]) for k in g_p1)
+        err = max(float((g_p1[k] - g_chain[k]).abs().max()) for k in g_chain)
+        del g_p1, g_again, g_chain
+        if not deterministic:
+            raise AssertionError(f"projection[{label}]: two backward launches differ")
+        if max(gaps.values()) > P1_GRAD_RTOL:
+            raise AssertionError(f"projection[{label}]: P1's backward against autograd of the "
+                                 f"chain by relative norm {gaps} (limit {P1_GRAD_RTOL})")
+
+        # the kernels on the launchers' own arguments, and the chain
+        with torch.no_grad():
+            fwd_call, = capture_calls(pf, "_forward_cuda",
+                                      lambda: gauss_mod.project(*args, **kw))
+        bwd_call, = capture_calls(pf, "_backward_cuda", lambda: grads(gauss_mod.project,
+                                                                      d_payload))
+        with torch.no_grad():
+            ms = event_ms(lambda: pf._forward_cuda(*fwd_call), reps)
+            bwd_ms = event_ms(lambda: pf._backward_cuda(*bwd_call), reps)
+            plain_ms = event_ms(lambda: gauss_mod.project_chain(*args, **kw),
+                                max(2, reps // 10), warmup=1)
+        a, k, wanted = differentiable()
+        chain_payload = gauss_mod.project_chain(*a, **k)[0]
+        plain_bwd_ms = event_ms(lambda: torch.autograd.grad(
+            chain_payload, list(wanted.values()), d_payload, retain_graph=True,
+            allow_unused=True), max(2, reps // 10), warmup=1)
+        written = sum(_nbytes(g) for g in pf._backward_cuda(*bwd_call))
+        del chain_payload, wanted
+    fwd_bytes, bwd_read = p1_bytes(fwd_call[0], fwd_call[1])
+    bound_ms, bound_by = roofline(fwd_bytes, 0)
+    bwd_bound_ms, bwd_bound_by = roofline(bwd_read + written, 0)
+    meta = dict(label=label, views=views, gaussians=n, sh_degree=fwd_call[1].degree,
+                antialias=fwd_call[1].antialias)
+    fwd = dict(**meta, equal=True, bytes_of_signed_zeros=signed_zeros, max_abs_err=0.0,
+               ms=ms, plain_ms=plain_ms, bound_bytes=fwd_bytes, bound_ms=bound_ms,
+               bound_by=bound_by)
+    bwd = dict(**meta, rel_norm_gap=gaps, rtol=P1_GRAD_RTOL, max_abs_err=err,
+               deterministic=True, ms=bwd_ms, plain_ms=plain_bwd_ms,
+               bound_bytes=bwd_read + written, bound_ms=bwd_bound_ms, bound_by=bwd_bound_by)
+    log(f"projection forward[{label}]: " + json.dumps(fwd))
+    log(f"projection backward[{label}]: " + json.dumps(bwd))
+    return fwd, bwd
 
 
 def _stream_meta(stream, lo, hi, statics):
@@ -1680,9 +1865,12 @@ def run_timed_steps(trainer, steps, kernels, label, after_step=None):
     just before: checks finite scalars, one launch of each kernel per step
     on either path, finite parameters, every floating group moved, and
     logs the launches a replay of the step's graph counts for every
-    kernel.  Returns the walls, the graphed ones of replays only."""
+    kernel; P1 (its forward and its backward) once a step as well, counted
+    from where its counters stand (the main path's total runs on).
+    Returns the walls, the graphed ones of replays only."""
     import torch
 
+    from casualhdrsplat_torch.ops import projection_fused as pf
     from casualhdrsplat_torch.train import optim
 
     m = trainer.cfg.model
@@ -1690,7 +1878,10 @@ def run_timed_steps(trainer, steps, kernels, label, after_step=None):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
-    walls = graph_vs_eager_steps(trainer, steps, kernels, label, after_step)
+    p1 = (pf.FWD_KERNEL, pf.BWD_KERNEL)
+    p1_before = [k.launches for k in p1]
+    walls = graph_vs_eager_steps(trainer, steps, tuple(kernels) + p1, label, after_step)
+    p1_launched = [k.launches - b for k, b in zip(p1, p1_before)]
     replays = [w for w, r in zip(walls["graphed"], walls["replay"]) if r]
     walls["graphed"] = replays or walls["graphed"]
     pix = SIZE * SIZE * m.num_virtual_views
@@ -1700,13 +1891,15 @@ def run_timed_steps(trainer, steps, kernels, label, after_step=None):
             f"fwd+bwd ({SIZE}x{SIZE} x {m.num_virtual_views} views per step)")
     log(f"{label}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (graph "
         f"pool and eager step); launches over {steps} graphed and {steps} eager steps: "
-        + ", ".join(f"{k.symbol} {k.launches}" for k in kernels))
+        + ", ".join(f"{k.symbol} {k.launches}" for k in kernels)
+        + "".join(f", {k.symbol} {n}" for k, n in zip(p1, p1_launched)))
     call = trainer._step_graphs.call
     log(f"{label}: the step's graph was captured {call.captures} time(s) and replayed "
         f"{call.replays} times; a replay counts " + ", ".join(
             f"{c.symbol} {n}" for c, n in call._rise))
-    if any(k.launches != 2 * steps for k in kernels):
-        raise AssertionError("each training step must launch each compositor kernel once")
+    if any(k.launches != 2 * steps for k in kernels) or p1_launched != [2 * steps] * 2:
+        raise AssertionError("each training step must launch each compositor kernel and "
+                             "each half of P1 once")
     for path, label_, leaf in optim.labelled_leaves(trainer.params):
         if not bool(torch.isfinite(leaf.float()).all()):
             raise AssertionError(f"parameter {path} holds non-finite values")
@@ -1718,7 +1911,7 @@ def run_timed_steps(trainer, steps, kernels, label, after_step=None):
 def train_phase(device, dataset, rp):
     """The packed training path at the full width of ladder4-full: returns
     (launches of B1, of B2 and of G1, the B2 measurement at its shape, T1's
-    measurements, G1's).  G1's index is launched once per G1 launch
+    measurements, G1's, P1's).  G1's index is launched once per G1 launch
     (checked here and in every phase below)."""
     import torch
 
@@ -1768,7 +1961,9 @@ def train_phase(device, dataset, rp):
     g1 = measure_g1("train_step", g1_call, reps=10)
     del g1_call
     t1 = measure_crf_step("train_step", lambda: trainer.loss_and_grads(frame))
-    return (*launches, res, t1, g1)
+    p1 = measure_projection("train_step", capture_project(
+        lambda: trainer.loss_and_grads(frame))[0], reps=20)
+    return (*launches, res, t1, g1, p1)
 
 
 def graphed_serving(params, scene, cfg, pose_vms, angles, exposure, eager_out):
@@ -2737,12 +2932,13 @@ def sharded_world_of_one(device, dataset, rp):
     TRAIN_STEPS steps in which the one-device trainer replays its graph and
     the mesh trainer runs its captured step and its eager twin from the
     same state (`graph_vs_eager_steps`: scalars and every tensor of the
-    step held together, B1, B2, G1 and its index once a step either way,
-    the collectives' calls and bytes of a graphed step equal to an eager
+    step held together, B1, B2, G1 and its index and both halves of P1 once
+    a step either way, the collectives' calls and bytes of a graphed step equal to an eager
     step's).  Returns (B1, B2, G1 launches of the mesh's steps)."""
     import torch
     import torch.distributed as dist
 
+    from casualhdrsplat_torch.ops import projection_fused as pf
     from casualhdrsplat_torch.ops import stream_gather as sg
     from casualhdrsplat_torch.parallel.distributed import backend_for
     from casualhdrsplat_torch.parallel.mesh import Mesh
@@ -2788,8 +2984,8 @@ def sharded_world_of_one(device, dataset, rp):
                 out, dt = timed(one.run_step)
                 walls["one-device"].append(dt)
                 outs["one-device"].append(out)
-                w = graph_vs_eager_steps(sharded, 1, kernels, "mesh (1, 1)",
-                                         after_step=outs["mesh (1, 1)"].append)
+                w = graph_vs_eager_steps(sharded, 1, kernels + (pf.FWD_KERNEL, pf.BWD_KERNEL),
+                                         "mesh (1, 1)", after_step=outs["mesh (1, 1)"].append)
                 for key in w:
                     walls[key] += w[key]
             # each step: the one-device trainer's, the mesh's graphed and eager
@@ -3126,6 +3322,7 @@ def main() -> int:
     from casualhdrsplat_torch.data import synthetic
     from casualhdrsplat_torch.models import image_formation as imf
     from casualhdrsplat_torch.ops import crf_fused
+    from casualhdrsplat_torch.ops import projection_fused as pf
     from casualhdrsplat_torch.ops import rasterize_dense as rd
     from casualhdrsplat_torch.ops import rasterize_packed as rp
     from casualhdrsplat_torch.ops import stream_gather as sg
@@ -3139,7 +3336,8 @@ def main() -> int:
     # -- build ---------------------------------------------------------------
     # one nvcc per source, all started together
     kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, rd.FWD_KERNEL, rd.BWD_KERNEL,
-               crf_fused.FWD_KERNEL, crf_fused.BWD_KERNEL, sg.KERNEL, sg.INDEX)
+               crf_fused.FWD_KERNEL, crf_fused.BWD_KERNEL, sg.KERNEL, sg.INDEX,
+               pf.FWD_KERNEL, pf.BWD_KERNEL)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         for future in [pool.submit(k.load) for k in kernels]:
@@ -3173,6 +3371,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     rp.FWD_KERNEL.launches = 0
     crf_fused.FWD_KERNEL.launches = crf_fused.BWD_KERNEL.launches = 0
+    pf.FWD_KERNEL.launches = pf.BWD_KERNEL.launches = 0
     frame_s, pose_s, eager_out = [], [], {}
     with torch.inference_mode():
         for fid in range(3):
@@ -3209,6 +3408,11 @@ def main() -> int:
         f"views)")
     if frame_launches != 3 or pose_launches != 21:
         raise AssertionError("the compositor kernel was not launched on both branches")
+    log(f"launches of P1 while serving: forward {pf.FWD_KERNEL.launches}, backward "
+        f"{pf.BWD_KERNEL.launches}")
+    if (pf.FWD_KERNEL.launches, pf.BWD_KERNEL.launches) != (launches, 0):
+        raise AssertionError("serving: P1's forward once a render, as the compositor, and "
+                             "no backward")
 
     # -- kernels against their plain versions, timed -------------------------
     with torch.inference_mode():
@@ -3248,13 +3452,20 @@ def main() -> int:
             lambda: renders.render_pose(params, scene, pose_vms[1], cfg, exposure=exposure))
     del renders
 
+    def served_pose():
+        with torch.no_grad():
+            imf.render_pose(params, scene, pose_vms[1], cfg, exposure=exposure)
+
+    # P1 on the inputs a served pose gives it
+    p1_pose = measure_projection("render_pose", capture_project(served_pose)[0], reps=20)
+
     serve_launches = launches
     dense_serve_launches, res_dense_fwd = dense_serving_phase(
         device, cfg, scene, params, pose_vms, exposure, rd)
     del params
     dataset = make_training_data(device)
     (train_fwd_launches, train_bwd_launches, train_g1_launches, res_bwd, t1_step,
-     g1_step) = train_phase(device, dataset, rp)
+     g1_step, p1_step) = train_phase(device, dataset, rp)
     dense_fwd_launches, dense_bwd_launches, res_dense_bwd = dense_train_phase(
         device, dataset, rd)
     torch.cuda.empty_cache()
@@ -3273,6 +3484,9 @@ def main() -> int:
     entry_fwd_launches = entry_phase(device, rp)
     t1_launches = crf_fused.FWD_KERNEL.launches, crf_fused.BWD_KERNEL.launches
     log(f"T1 launches on the main path: forward {t1_launches[0]}, backward {t1_launches[1]} "
+        f"(the sharded phase's second rank not counted)")
+    p1_launches = pf.FWD_KERNEL.launches, pf.BWD_KERNEL.launches
+    log(f"P1 launches on the main path: forward {p1_launches[0]}, backward {p1_launches[1]} "
         f"(the sharded phase's second rank not counted)")
     g1_bench = bench_shapes(device)
     log("G1 on the main path's inputs (ms: the counting index and the kernel; sort_index: "
@@ -3320,14 +3534,27 @@ def main() -> int:
         # version: the sort)
         kernel_entry("stream_gather_index", "rasterize.py:310",
                      sum(INDEX_LAUNCHES.values()), g1_step["index"]),
+        # P1 stands for XLA's fusions of the projection chain (no
+        # pallas_call there), measured on the training step's inputs (8
+        # views); its plain version is the port's chain, forward and
+        # autograd's backward
+        dict(kernel_entry("projection_fwd", "", p1_launches[0], p1_step[0]),
+             replaces="casualhdrsplat_tpu/models/gaussians.py:activate, ops/projection.py, "
+                      "ops/binning.py:build_payload"),
+        dict(kernel_entry("projection_bwd", "", p1_launches[1], p1_step[1]),
+             replaces="casualhdrsplat_tpu/models/gaussians.py:activate, ops/projection.py, "
+                      "ops/binning.py:build_payload"),
     ]
     idle = [k["name"] for k in kernels_line if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels the main path never launched: {idle}")
-    if kernels_line[-1]["launches"] != kernels_line[-2]["launches"]:
+    if kernels_line[-3]["launches"] != kernels_line[-4]["launches"]:
         raise AssertionError(f"G1's index not once per G1 launch: {INDEX_LAUNCHES}")
     log(f"T1 on the training step's inputs: forward {json.dumps(t1_step[0])}, backward "
         f"{json.dumps(t1_step[1])}")
+    log("P1 (ms, plain_ms, bound_ms), forward / backward: " + json.dumps(
+        {r[0]["label"]: [[d[k] for k in ("ms", "plain_ms", "bound_ms")] for d in r]
+         for r in (p1_step, p1_pose)}))
     log("eager and graphed windows: " + json.dumps(WINDOWS))
     log("pose aligners, ms a step: " + json.dumps(ALIGNER_MS))
     log(json.dumps({"kernels": kernels_line}))
