@@ -1,37 +1,54 @@
-"""ctypes loader for the repository's optional native host helpers
-(native/*.cc, built with `make -C native` into native/libchs_native.so).
+"""ctypes loader for the repository's native host helpers (native/chs_native.cc):
+the uniform-grid k-NN that initialises the Gaussians' scales
+(`chs_knn_mean_dist`, called by ops/knn.py) and a COLMAP points3D reader.
 The port's own copy of casualhdrsplat_tpu/data/_native.py.
 
-These are plain C++ host code (a COLMAP points3D reader and a k-NN), not
-kernels.  Everything here is optional: each caller falls back to its
-Python implementation when the library is absent.
+These are plain C++ host code, not kernels.  The port builds the library
+itself at first use, as it builds its kernels: `ops/cuda_build.build_host`
+compiles native/chs_native.cc with the host compiler (or nvcc) into
+casualhdrsplat_torch/_build/, named by a hash of the source and the
+command, under the span `chs.kernel.build`.  `load()` is None where it
+cannot be built (no compiler): the COLMAP reader then falls back to
+Python and the k-NN, on the CPU, to its NumPy brute force; `library()`
+raises instead, for the k-NN on a card, whose brute force cannot hold a
+large cloud.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
+import threading
 from functools import lru_cache
+from pathlib import Path
 
 import numpy as np
 
-_LIB_NAMES = ("libchs_native.so",)
+SOURCE = Path(__file__).resolve().parents[2] / "native" / "chs_native.cc"
+_LOCK = threading.Lock()
 
 
 @lru_cache(maxsize=1)
+def _open():
+    from casualhdrsplat_torch.ops import cuda_build
+
+    lib = ctypes.CDLL(str(cuda_build.build_host(SOURCE)))
+    _bind(lib)
+    return lib
+
+
+def library():
+    """The native library, built at first use; raises RuntimeError or
+    OSError where it cannot be built or loaded."""
+    with _LOCK:  # one build a process, whichever thread asks first
+        return _open()
+
+
 def load():
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    for name in _LIB_NAMES:
-        for sub in ("native", "native/build"):
-            path = os.path.join(root, sub, name)
-            if os.path.exists(path):
-                try:
-                    lib = ctypes.CDLL(path)
-                    _bind(lib)
-                    return lib
-                except OSError:
-                    return None
-    return None
+    """The native library, or None where it cannot be built or loaded."""
+    try:
+        return library()
+    except (RuntimeError, OSError):
+        return None
 
 
 def _bind(lib):
@@ -65,6 +82,9 @@ def read_points3d(lib, path: str):
 
 
 def knn_mean_dist(lib, points: np.ndarray, k: int) -> np.ndarray:
+    """The grid search: each point's mean distance to its k nearest
+    neighbours (itself excluded, duplicates counted), exact in float32;
+    [M, 3] -> [M] float32."""
     points = np.ascontiguousarray(points, np.float32)
     out = np.empty((points.shape[0],), np.float32)
     if lib.chs_knn_mean_dist(points, points.shape[0], k, out) != 0:

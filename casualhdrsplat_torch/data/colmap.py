@@ -7,8 +7,9 @@ offline SfM step: COLMAP stays an external process, its output is read
 here.
 
 A native C++ reader of the (large) points3D file lives in
-native/chs_native.cc; this module uses it when the shared library has been
-built, else the pure-Python reader.
+native/chs_native.cc; this module uses it when data/_native.py can build
+the shared library (at first use, with the host compiler), else the
+pure-Python reader.
 """
 
 from __future__ import annotations

@@ -38,8 +38,9 @@ def create(
     scale_clip=(1e-7, 1e2),
     device="cuda",
 ) -> Params:
-    """Initialize from SfM points: the k-NN scale init on `device`, the
-    rest host-side numpy, then one copy."""
+    """Initialize from SfM points: the k-NN scale init (ops/knn.py, the
+    host grid search; on `device`'s rule for its fallback), the rest
+    host-side numpy, then one copy."""
     n = min(len(xyz), max_gaussians)
     k = sh_ops.num_sh_bases(sh_degree)
     xyz = np.asarray(xyz, np.float32)[:n]

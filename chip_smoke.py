@@ -68,6 +68,19 @@
    step against its neighbours (the steps before and after it), graphed
    and eager, host-clock medians of 3; the round alone eager against
    graphed (walls and busy shares).
+6b. ladder5-pod at its own size, 3,145,728 Gaussians on one card (its
+   (4, 2) mesh cut to (1, 1)): a synthetic video of that many Gaussians,
+   ladder4's recipe with the scales divided by 24^(1/3), and a Trainer on
+   PRESETS["ladder5"] with density control off, whose start-up k-NN takes
+   the host grid route (its seconds printed); one step replayed from the
+   captured graph against `run_step_eager` from the same state, every
+   scalar and tensor of the step equal to the bit, B1, B2, G1 and its
+   index once each way (added to the kernels line); B1, B2 and G1 on the
+   inputs a 3M step gives them against their plain versions, B1 and B2 on
+   the last view's rows, whose slots lie past 2^31 floats of the stream,
+   G1 on the whole [8, 6N, 16] gradient (the kernels line's "ladder5"
+   entries); then the grid k-NN against the brute force on the card on
+   262,144 of the cloud's points, within rtol 1e-5.
 7. The sharded path (parallel/) on the same video, ladder4 with per-view
    binning: (a) a world of one (nccl, mesh (1, 1)) in this process, one
    step's gradients against the one-device trainer from the same state,
@@ -180,6 +193,7 @@ import concurrent.futures
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import os
 import sys
@@ -1427,25 +1441,15 @@ def make_training_data(device):
 
 
 def timed_trainer(cfg, dataset, device):
-    """(Trainer, its set-up seconds, of which the k-NN scale init on the
-    card)."""
-    from casualhdrsplat_torch.models import gaussians as gauss_mod
+    """(Trainer, its set-up seconds, of which the k-NN scale init: the
+    host grid search and one copy to the card, by the program's record of
+    the call, ops/knn.py `LAST`)."""
+    from casualhdrsplat_torch.ops import knn
     from casualhdrsplat_torch.train.trainer import Trainer
 
-    knn_s = []
-    knn = gauss_mod.knn_mean_dist
-
-    def timed_knn(*args, **kw):
-        out, dt = timed(lambda: knn(*args, **kw))
-        knn_s.append(dt)
-        return out
-
-    gauss_mod.knn_mean_dist = timed_knn
-    try:
-        trainer, t_init = timed(lambda: Trainer(cfg, dataset, device=device))
-    finally:
-        gauss_mod.knn_mean_dist = knn
-    return trainer, t_init, sum(knn_s)
+    before = knn.LAST
+    trainer, t_init = timed(lambda: Trainer(cfg, dataset, device=device))
+    return trainer, t_init, 0.0 if knn.LAST is before else knn.LAST.ms / 1e3
 
 
 def trainer_state(trainer):
@@ -1932,7 +1936,7 @@ def train_phase(device, dataset, rp):
     log(f"trainer: {alive} of {m.max_gaussians} Gaussians alive, SH degree "
         f"{trainer.active_sh_degree()}, {m.num_virtual_views} virtual views, shared binning "
         f"{cfg.model.rasterize.shared_binning}; set-up {t_init:.2f} s, of which the k-NN "
-        f"on the card {t_knn:.2f} s")
+        f"{t_knn:.2f} s")
     if alive != m.max_gaussians or trainer.active_sh_degree() != m.sh_degree:
         raise AssertionError("the trainer does not run at the model's full width")
 
@@ -1964,6 +1968,142 @@ def train_phase(device, dataset, rp):
     p1 = measure_projection("train_step", capture_project(
         lambda: trainer.loss_and_grads(frame))[0], reps=20)
     return (*launches, res, t1, g1, p1)
+
+
+def ladder5_phase(device, rp):
+    """ladder5-pod at its own size on one card (its (4, 2) mesh cut to (1, 1)):
+    a synthetic video of 3,145,728 Gaussians, ladder4's recipe with the
+    scales divided by 24^(1/3), and a Trainer on PRESETS["ladder5"] with
+    density control off.  The trainer's start-up k-NN takes the host grid
+    route (ops/knn.py), its seconds printed.  Two steps warm up and capture
+    the step's graph; then one step is run twice from the same state, a
+    replay of the graph and `run_step_eager`: every scalar and every tensor
+    of the step equal to the bit (a packed step is deterministic), B1, B2,
+    G1 and its index once each way.  Then B1, B2 and G1 against their plain
+    versions on the inputs a step gives them: B1 and B2 on the last view's
+    rows (`last_view_rows`), G1 on the whole gradient of the stream.  Then
+    the grid k-NN against the brute force on the card on 262,144 of the
+    cloud's points, within rtol 1e-5.  Returns (launches of B1, of B2 and
+    of G1, and {kernel: its measurement here})."""
+    import torch
+
+    from casualhdrsplat_torch import config
+    from casualhdrsplat_torch.data import dataset as dataset_mod
+    from casualhdrsplat_torch.ops import knn
+    from casualhdrsplat_torch.ops import stream_gather as sg
+
+    cfg = config.PRESETS["ladder5"]()
+    cfg.parallel.data = cfg.parallel.gauss = 1
+    cfg.densify.enabled = False
+    cfg.eval_every = 0
+    cfg.data.eval_every = 0
+    m = cfg.model
+    cut = 24.0 ** (1.0 / 3.0)
+    dataset, t_data = timed(lambda: dataset_mod.make_synthetic_dataset(
+        seed=SEED, device=device, renderer="fast", n_gaussians=m.max_gaussians,
+        n_frames=N_FRAMES, n_virtual=m.num_virtual_views, size=SIZE,
+        scale_range=(0.004 / cut, 0.02 / cut), angle_span=0.12, exposure_range=(0.4, 0.8)))
+    log(f"ladder5: {dataset.images.shape[0]} frames of {SIZE}x{SIZE} rendered from "
+        f"{len(dataset.points_xyz)} Gaussians in {t_data:.2f} s")
+    trainer, t_init, t_knn = timed_trainer(cfg, dataset, device)
+    last = knn.LAST
+    alive = int(trainer.params["gaussians"]["alive"].sum())
+    log(f"ladder5 trainer: {alive} of {m.max_gaussians} Gaussians alive, shared binning "
+        f"{trainer.cfg.model.rasterize.shared_binning}; set-up {t_init:.2f} s, of which the "
+        f"k-NN {t_knn:.2f} s searching and copying ({last.route} route, {last.points} "
+        "points)")
+    if last.route != "grid" or last.points != m.max_gaussians or alive != m.max_gaussians:
+        raise AssertionError("ladder5: the trainer's k-NN did not take the grid route at the "
+                             "store's size")
+    if not trainer.cfg.model.rasterize.shared_binning:
+        raise AssertionError("ladder5: the start-up guard left shared binning")
+    for _ in range(2):  # the graph's warm-up and its capture
+        trainer.run_step()
+    kernels = (rp.FWD_KERNEL, rp.BWD_KERNEL, sg.KERNEL, sg.INDEX)
+    for k in kernels:
+        k.launches = 0
+    call = trainer._step_graphs.call
+    replays = call.replays
+    start = trainer_state(trainer)
+    graphed_out, t_graphed = timed(trainer.run_step)
+    graphed = trainer_state(trainer)
+    set_trainer_state(trainer, start)
+    eager_out, t_eager = timed(trainer.run_step_eager)
+    eager = trainer_state(trainer)
+    log(f"ladder5 step {trainer.step}: graphed {t_graphed * 1e3:.2f} ms, eager "
+        f"{t_eager * 1e3:.2f} ms, " + ", ".join(f"{k} {v:.6g}" for k, v in graphed_out.items())
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if trainer._step_graphs.call is not call or call.replays != replays + 1:
+        raise AssertionError("ladder5: the graphed step was not a replay")
+    if graphed_out != eager_out:
+        raise AssertionError(f"ladder5: graphed step {graphed_out}, eager {eager_out}")
+    differ = [f"{kind} {name}" for (kind, name), a, b in zip(
+        step_tensor_kinds(trainer), graphed["tensors"], eager["tensors"])
+        if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"ladder5: graphed and eager steps differ in {differ}")
+    launches = tuple(k.launches for k in kernels)
+    if launches != (2, 2, 2, 2):
+        raise AssertionError(f"ladder5: B1, B2, G1 and its index once a step, got {launches}")
+    INDEX_LAUNCHES["ladder5"] = launches[3]
+    log("ladder5: the graphed step equals the eager step to the bit (every scalar and "
+        f"tensor); launches B1, B2, G1, index {launches}")
+    del start, graphed, eager
+
+    # B1, B2 and G1 on the inputs a step gives them
+    frame = int(trainer.dataset.train_indices[1])
+    (bwd_call,), (g1_call,) = capture_backwards(lambda: trainer.loss_and_grads(frame))
+    # the step's graph and its pool (~26 GiB) go with the trainer
+    del trainer, call
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"ladder5: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held by the captured calls "
+        f"and the video, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    measured = {"G1": measure_g1("ladder5_step", g1_call, reps=3)}
+    del g1_call
+    bwd_call = last_view_rows(bwd_call)
+    measured["B2"] = measure_backward("ladder5_step_last_view", bwd_call, reps=3)
+    with torch.no_grad():
+        measured["B1"] = measure_compositor("ladder5_step_last_view_forward",
+                                            bwd_call[:3] + bwd_call[6:], 1, reps=3)
+    del bwd_call
+    torch.cuda.empty_cache()
+
+    sub = np.ascontiguousarray(dataset.points_xyz[: 1 << 18])
+    grid, t_grid = timed(lambda: knn.knn_mean_dist(sub, 3, device=device))
+    brute, t_brute = timed(lambda: knn.knn_mean_dist_brute(sub, 3, 2048, device))
+    rel = float(((grid - brute).abs() / brute).max())
+    log(f"ladder5 k-NN on {len(sub)} points: grid {t_grid:.3f} s, brute force on the card "
+        f"{t_brute:.3f} s, largest relative difference {rel:.3g}")
+    if not rel <= 1e-5:
+        raise AssertionError(f"ladder5: the grid k-NN is {rel} from the brute force")
+    return (*launches[:3], measured)
+
+
+def last_view_rows(call):
+    """B2's captured call (stream, row_lo, row_hi, order, out4, g4, statics)
+    with every row but the last view's emptied (lo = hi = 0, the order
+    taken anew), so that the plain versions walk one view of the whole
+    stream; raises unless some of that view's segments end past 2^31
+    floats of the stream, the offsets a 32-bit index would get wrong."""
+    import torch
+
+    from casualhdrsplat_torch.ops import rasterize_packed as rp
+
+    stream, lo, hi, _, out4, g4, statics = call
+    per_view = statics.tiles_per_view or statics.ntx * statics.nty
+    rows = torch.arange(lo.shape[0], device=lo.device)
+    keep = rows // per_view == statics.num_views - 1
+    lo = torch.where(keep, lo, torch.zeros_like(lo))
+    hi = torch.where(keep, hi, torch.zeros_like(hi))
+    width = stream.shape[1]
+    past = int((hi.long() * width > 2**31).sum())
+    log(f"ladder5 last view: rows {int(keep.sum())} of {lo.shape[0]}, {past} of them end past "
+        f"2^31 floats of the stream ({stream.numel()} floats; slots "
+        f"{int(lo[keep].min())}-{int(hi.max())})")
+    if not past:
+        raise AssertionError("ladder5: no segment of the last view passes 2^31 floats")
+    return stream, lo, hi, rp.row_order(lo, hi), out4, g4, statics
 
 
 def graphed_serving(params, scene, cfg, pose_vms, angles, exposure, eager_out):
@@ -2124,8 +2264,8 @@ def dense_train_phase(device, dataset, rd):
     alive = int(trainer.params["gaussians"]["alive"].sum())
     log(f"dense trainer: {alive} of {m.max_gaussians} Gaussians alive, density control on, "
         f"tiles {m.rasterize.tile_h}x{m.rasterize.tile_w}, capacity "
-        f"{m.rasterize.tile_capacity}; set-up {t_init:.2f} s, of which the k-NN on the "
-        f"card {t_knn:.2f} s")
+        f"{m.rasterize.tile_capacity}; set-up {t_init:.2f} s, of which the k-NN "
+        f"{t_knn:.2f} s")
     for _ in range(DENSE_WARMUP_STEPS):
         out, dt = timed(trainer.run_step)
         log(f"dense warm-up step {trainer.step}: {dt:.3f} s, loss {out['loss']:.5f}")
@@ -3304,6 +3444,14 @@ def kernel_entry(name, replaces, launches, res):
     }
 
 
+def at_ladder5(entry, res):
+    """A kernels-line entry with its measurement on ladder5's step beside
+    it, and max_abs_err the larger of the two."""
+    keys = ("label", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    return dict(entry, max_abs_err=max(entry["max_abs_err"], res["max_abs_err"]),
+                ladder5={k: res[k] for k in keys})
+
+
 def main() -> int:
     import torch
 
@@ -3469,6 +3617,8 @@ def main() -> int:
     dense_fwd_launches, dense_bwd_launches, res_dense_bwd = dense_train_phase(
         device, dataset, rd)
     torch.cuda.empty_cache()
+    ladder5 = ladder5_phase(device, rp)
+    torch.cuda.empty_cache()
     one = sharded_world_of_one(device, dataset, rp)
     two, g1_sharded = sharded_world_of_two(device, dataset)
     bench_dry = sharded_bench_and_dryrun(device)
@@ -3502,14 +3652,18 @@ def main() -> int:
     row_bounds_check(device)
 
     kernels_line = [
-        # each forward kernel is launched by its path's requests and steps
-        kernel_entry("rasterize_packed_fwd", "rasterize_packed.py:99",
-                     serve_launches + train_fwd_launches + cli_fwd_launches
-                     + quality_fwd_launches + bench_fwd_launches + entry_fwd_launches
-                     + sharded["B1"], res_frame),
-        kernel_entry("rasterize_packed_bwd", "rasterize_packed.py:201",
-                     train_bwd_launches + cli_bwd_launches + quality_bwd_launches
-                     + bench_bwd_launches + sharded["B2"], res_bwd),
+        # each forward kernel is launched by its path's requests and steps;
+        # B1, B2 and G1 also carry their measurement on ladder5's step
+        # (under "ladder5"), max_abs_err the larger of the two
+        at_ladder5(kernel_entry("rasterize_packed_fwd", "rasterize_packed.py:99",
+                                serve_launches + train_fwd_launches + cli_fwd_launches
+                                + quality_fwd_launches + bench_fwd_launches
+                                + entry_fwd_launches + sharded["B1"] + ladder5[0], res_frame),
+                   ladder5[3]["B1"]),
+        at_ladder5(kernel_entry("rasterize_packed_bwd", "rasterize_packed.py:201",
+                                train_bwd_launches + cli_bwd_launches + quality_bwd_launches
+                                + bench_bwd_launches + sharded["B2"] + ladder5[1], res_bwd),
+                   ladder5[3]["B2"]),
         kernel_entry("rasterize_dense_fwd", "rasterize_pallas.py:104",
                      dense_serve_launches + dense_fwd_launches + sharded["B3"], res_dense_fwd),
         kernel_entry("rasterize_dense_bwd", "rasterize_pallas.py:185",
@@ -3525,9 +3679,10 @@ def main() -> int:
         # ms the backward as the path runs it, the index and the kernel
         # (kernel_ms the kernel alone); the library call is the
         # scatter_add_ the port ran before
-        dict(kernel_entry("stream_gather_bwd", "rasterize.py:310",
-                          train_g1_launches + cli_g1_launches + quality_g1_launches
-                          + bench_g1_launches + sharded["G1"], g1_step),
+        dict(at_ladder5(kernel_entry("stream_gather_bwd", "rasterize.py:310",
+                                     train_g1_launches + cli_g1_launches + quality_g1_launches
+                                     + bench_g1_launches + sharded["G1"] + ladder5[2],
+                                     g1_step), ladder5[3]["G1"]),
              library_ms=g1_step["library_ms"], ms_includes="stream_gather_index",
              kernel_ms=g1_step["kernel_ms"]),
         # G1's index, the counting pass, by its own counter (its plain
